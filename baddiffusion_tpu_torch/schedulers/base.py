@@ -1,0 +1,208 @@
+"""Scheduler core (port of the parts of ``baddiffusion_tpu/schedulers/base.py``
+that DDPM uses): β-tables, the shared step math, and the HF-layout
+``scheduler_config.json`` round trip.
+
+The α/β tables are f32 tensors, indexed by timestep, and every per-step
+coefficient is computed from them in f32 as the JAX package does — Python
+floats (f64) would drift from it. They live on the host: a step's
+coefficients are 0-dim f32 tensors that PyTorch passes to the device kernels
+as scalars, so the scalar math costs no device launches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+from typing import Any, Dict, Optional, Tuple, Type
+
+import numpy as np
+import torch
+
+SCHEDULER_CONFIG_NAME = "scheduler_config.json"
+QUANTILE_MAX_ELEMENTS = 1 << 24  # torch.quantile's input-size limit
+
+
+def make_betas(
+    beta_schedule: str,
+    beta_start: float,
+    beta_end: float,
+    num_train_timesteps: int,
+    trained_betas=None,
+    max_beta: float = 0.999,
+) -> np.ndarray:
+    """β-table (linear / scaled_linear / squaredcos_cap_v2 / sigmoid), float32."""
+    if trained_betas is not None:
+        return np.asarray(trained_betas, dtype=np.float32)
+    if beta_schedule == "linear":
+        return np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float32)
+    if beta_schedule == "scaled_linear":
+        return (
+            np.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps, dtype=np.float32) ** 2
+        ).astype(np.float32)
+    if beta_schedule == "squaredcos_cap_v2":
+        # alpha_bar(t) = cos((t + 0.008) / 1.008 * pi/2)^2  (Glide cosine schedule)
+        def alpha_bar(t):
+            return math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2
+
+        betas = []
+        for i in range(num_train_timesteps):
+            t1 = i / num_train_timesteps
+            t2 = (i + 1) / num_train_timesteps
+            betas.append(min(1 - alpha_bar(t2) / alpha_bar(t1), max_beta))
+        return np.asarray(betas, dtype=np.float32)
+    if beta_schedule == "sigmoid":
+        betas = 1.0 / (1.0 + np.exp(-np.linspace(-6, 6, num_train_timesteps)))
+        return (betas * (beta_end - beta_start) + beta_start).astype(np.float32)
+    raise NotImplementedError(f"beta_schedule {beta_schedule!r} is not implemented")
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionSchedule:
+    """The α/β tables every discrete-time scheduler carries: [T] f32 host tensors."""
+
+    betas: torch.Tensor
+    alphas: torch.Tensor
+    alphas_cumprod: torch.Tensor
+
+    @classmethod
+    def create(cls, config) -> "DiffusionSchedule":
+        betas = make_betas(
+            config.beta_schedule,
+            config.beta_start,
+            config.beta_end,
+            config.num_train_timesteps,
+            getattr(config, "trained_betas", None),
+        )
+        alphas = (1.0 - betas).astype(np.float32)
+        alphas_cumprod = np.cumprod(alphas, dtype=np.float32)
+        return cls(
+            betas=torch.from_numpy(betas),
+            alphas=torch.from_numpy(alphas),
+            alphas_cumprod=torch.from_numpy(alphas_cumprod),
+        )
+
+
+def spaced_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:
+    """'leading'-spaced descending inference timesteps: round(arange(n) * T//n)[::-1]."""
+    if num_inference_steps > num_train_timesteps:
+        raise ValueError(
+            f"num_inference_steps {num_inference_steps} > num_train_timesteps {num_train_timesteps}"
+        )
+    step_ratio = num_train_timesteps // num_inference_steps
+    return (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].astype(np.int32)
+
+
+def add_noise_common(alphas_cumprod: torch.Tensor, original: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_0): √ᾱ_t·x₀ + √(1−ᾱ_t)·ε, per sample."""
+    acp = alphas_cumprod.to(original.device)[timesteps.to(original.device).long()].to(original.dtype)
+    acp = acp.reshape((-1,) + (1,) * (original.dim() - 1))
+    return torch.sqrt(acp) * original + torch.sqrt(1.0 - acp) * noise
+
+
+def threshold_sample(sample: torch.Tensor, ratio: float, max_value: float) -> torch.Tensor:
+    """Imagen dynamic thresholding: per sample, clip to the ``ratio`` quantile
+    of |x| (at least 1, at most ``max_value``) and divide by it."""
+    batch = sample.shape[0]
+    flat = sample.reshape(batch, -1).abs().float()
+    if flat.numel() <= QUANTILE_MAX_ELEMENTS:
+        s = torch.quantile(flat, ratio, dim=1)
+    else:  # one row at a time stays under torch.quantile's size limit
+        s = torch.stack([torch.quantile(row, ratio) for row in flat])
+    s = torch.clamp(s, 1.0, max_value).reshape((batch,) + (1,) * (sample.dim() - 1))
+    return (torch.clamp(sample, -s, s) / s).to(sample.dtype)
+
+
+def pred_x0_from_model_output(
+    prediction_type: str,
+    sample: torch.Tensor,
+    model_output: torch.Tensor,
+    alpha_prod_t: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pred_original_sample, pred_epsilon) for 'epsilon' | 'sample' | 'v_prediction'."""
+    beta_prod_t = 1.0 - alpha_prod_t
+    sqrt_a = alpha_prod_t**0.5
+    sqrt_b = beta_prod_t**0.5
+    if prediction_type == "epsilon":
+        x0 = (sample - sqrt_b * model_output) / sqrt_a
+        eps = model_output
+    elif prediction_type == "sample":
+        x0 = model_output
+        eps = (sample - sqrt_a * x0) / sqrt_b
+    elif prediction_type == "v_prediction":
+        x0 = sqrt_a * sample - sqrt_b * model_output
+        eps = sqrt_a * model_output + sqrt_b * sample
+    else:
+        raise ValueError(f"unknown prediction_type {prediction_type!r}")
+    return x0, eps
+
+
+# ---------------------------------------------------------------------------
+# Config (de)serialization, HF layout (``scheduler_config.json``)
+# ---------------------------------------------------------------------------
+
+_SCHEDULER_REGISTRY: Dict[str, Type] = {}
+
+
+def register_scheduler(hf_class_name: str):
+    """Class decorator: register a scheduler under its HF ``_class_name``."""
+
+    def wrap(cls):
+        _SCHEDULER_REGISTRY[hf_class_name] = cls
+        cls.hf_class_name = hf_class_name
+        return cls
+
+    return wrap
+
+
+class ConfigurableScheduler:
+    """Base for schedulers: a frozen-dataclass config plus its json round trip."""
+
+    config_class: Type = None
+    hf_class_name: str = None
+
+    def __init__(self, config=None, **kwargs):
+        if config is None:
+            config = self.config_class(**kwargs)
+        elif kwargs:
+            config = dataclasses.replace(config, **kwargs)
+        self.config = config
+
+    def save_config(self, save_directory: str) -> None:
+        os.makedirs(save_directory, exist_ok=True)
+        payload = {"_class_name": self.hf_class_name, "_diffusers_version": "0.16.0.dev0"}
+        payload.update(dataclasses.asdict(self.config))
+        payload = {k: (list(v) if isinstance(v, tuple) else v) for k, v in payload.items()}
+        with open(os.path.join(save_directory, SCHEDULER_CONFIG_NAME), "w") as f:
+            json.dump(payload, f, indent=2, sort_keys=True)
+
+    @classmethod
+    def from_config_dict(cls, payload: Dict[str, Any]) -> "ConfigurableScheduler":
+        fields = {f.name for f in dataclasses.fields(cls.config_class)}
+        # json turns tuples into lists; convert back so configs stay hashable
+        kwargs = {k: (tuple(v) if isinstance(v, list) else v) for k, v in payload.items() if k in fields}
+        return cls(cls.config_class(**kwargs))
+
+    @classmethod
+    def from_pretrained(cls, path: str, subfolder: Optional[str] = None) -> "ConfigurableScheduler":
+        if subfolder:
+            path = os.path.join(path, subfolder)
+        if os.path.isdir(path):
+            path = os.path.join(path, SCHEDULER_CONFIG_NAME)
+        with open(path) as f:
+            payload = json.load(f)
+        if cls is ConfigurableScheduler:
+            klass = _SCHEDULER_REGISTRY.get(payload.get("_class_name"))
+            if klass is None:
+                raise NotImplementedError(
+                    f"scheduler {payload.get('_class_name')!r} is not ported; ported: {sorted(_SCHEDULER_REGISTRY)}"
+                )
+            return klass.from_config_dict(payload)
+        return cls.from_config_dict(payload)
+
+
+def load_scheduler(path: str, subfolder: Optional[str] = None) -> ConfigurableScheduler:
+    """Load any ported scheduler from an HF-layout ``scheduler_config.json``."""
+    return ConfigurableScheduler.from_pretrained(path, subfolder=subfolder)

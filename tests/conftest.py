@@ -41,6 +41,7 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: needs RUN_SLOW=1 (big models / many steps)")
     config.addinivalue_line("markers", "reference: needs /root/reference checkout for parity checks")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

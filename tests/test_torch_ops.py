@@ -1,0 +1,109 @@
+"""The port's kernel modules on the CPU: the plain twins of the Hopper kernels
+against the JAX package's Pallas kernels (interpret mode) and references, and
+the dispatch contract (CPU tensors take the plain version, launch nothing).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from baddiffusion_tpu.ops.attention import attention_reference, fused_attention
+from baddiffusion_tpu.ops.groupnorm import fused_groupnorm_silu, groupnorm_silu_reference
+from baddiffusion_tpu.models.resnet import GroupNorm as JaxGroupNorm
+from baddiffusion_tpu_torch import ops
+from baddiffusion_tpu_torch.ops import (
+    attention,
+    attention_plain,
+    groupnorm_plain,
+    groupnorm_silu,
+    groupnorm_silu_plain,
+)
+
+# (B, H, W, C): main-path shapes of the 32 px scratch UNet at batch 2, one
+# H = W = 1 and one C = 384 shape among them
+GN_SHAPES = [(2, 8, 8, 128), (2, 4, 4, 256), (2, 1, 1, 512), (1, 2, 2, 384), (2, 2, 2, 1024)]
+ATTN_SHAPES = [(2, 64, 4, 8), (2, 64, 1, 8), (1, 2, 256, 64)]
+
+
+def _gn_inputs(shape, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape).astype(np.float32)
+    scale = (rng.rand(shape[-1]) + 0.5).astype(np.float32)
+    bias = (rng.randn(shape[-1]) * 0.1).astype(np.float32)
+    return x, scale, bias
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_groupnorm_silu_plain_matches_pallas_kernel(shape):
+    x, scale, bias = _gn_inputs(shape, seed=sum(shape))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(fused_groupnorm_silu(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), 32, 1e-5))
+    got = groupnorm_silu_plain(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias), 32, 1e-5)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_groupnorm_silu_plain_matches_jax_reference(shape):
+    x, scale, bias = _gn_inputs(shape, seed=1 + sum(shape))
+    want = np.asarray(groupnorm_silu_reference(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), 32, 1e-5))
+    got = groupnorm_silu_plain(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias), 32, 1e-5)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_groupnorm_plain_matches_jax_module():
+    """The SiLU-free GroupNorm (AttentionBlock's), with a non-default eps and
+    an input whose mean is off zero (single-pass variance; a larger offset
+    makes f32 cancellation amplify the two libraries' summation orders)."""
+    x, scale, bias = _gn_inputs((2, 4, 4, 64), seed=5)
+    x = x + 0.5
+    want = JaxGroupNorm(num_groups=8, epsilon=1e-6).apply(
+        {"params": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}}, jnp.asarray(x)
+    )
+    got = groupnorm_plain(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias), 8, 1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_attention_plain_matches_pallas_kernel(shape):
+    rng = np.random.RandomState(shape[2])
+    q, k, v = (rng.randn(*shape).astype(np.float32) for _ in range(3))
+    scale = 1.0 / np.sqrt(shape[-1])
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale))
+    got = attention_plain(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), scale)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_attention_plain_matches_jax_reference():
+    rng = np.random.RandomState(11)
+    q, k, v = (rng.randn(2, 4, 16, 8).astype(np.float32) for _ in range(3))
+    want = np.asarray(attention_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.35))
+    got = attention_plain(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 0.35)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_cpu_wrappers_route_to_plain_and_launch_nothing():
+    ops.reset_launch_counts()
+    x, scale, bias = (torch.from_numpy(a) for a in _gn_inputs((2, 4, 4, 64), seed=3))
+    assert torch.equal(groupnorm_silu(x, scale, bias, 32), groupnorm_silu_plain(x, scale, bias, 32))
+    q = torch.randn(2, 8, 4, 8, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(attention(q, q, q, 0.5), attention_plain(q, q, q, 0.5))
+    assert ops.launch_counts() == {"groupnorm_silu": 0, "attention": 0}
+
+
+def test_plain_versions_keep_the_input_dtype():
+    x, scale, bias = (torch.from_numpy(a) for a in _gn_inputs((1, 2, 2, 64), seed=4))
+    xb = x.to(torch.bfloat16)
+    out = groupnorm_silu_plain(xb, scale.to(torch.bfloat16), bias.to(torch.bfloat16), 32)
+    assert out.dtype == torch.bfloat16
+    ref = groupnorm_silu_plain(xb.float(), scale.to(torch.bfloat16).float(), bias.to(torch.bfloat16).float(), 32)
+    torch.testing.assert_close(out.float(), ref, atol=1e-2, rtol=1e-2)
+    q = torch.randn(1, 2, 4, 8).to(torch.bfloat16)
+    assert attention_plain(q, q, q, 0.5).dtype == torch.bfloat16
+
+
+def test_groupnorm_rejects_indivisible_channels():
+    with pytest.raises(ValueError, match="not divisible"):
+        groupnorm_silu(torch.zeros(1, 2, 2, 48), torch.ones(48), torch.zeros(48), 32)
