@@ -1,10 +1,13 @@
-// Fused GroupNorm + SiLU forward over NHWC activations, for Hopper (sm_90a).
+// Fused GroupNorm + SiLU forward (K1) over NHWC activations, for Hopper
+// (sm_90a). The backward (K2) is groupnorm_silu_bwd.cu.
 //
 // Replaces the Pallas TPU kernel `_forward_pallas` / `_fwd_kernel` in
 // baddiffusion_tpu/ops/groupnorm.py. Same math: per (batch row, group) the
 // mean and rstd come from single-pass f32 sums, var = max(E[x^2] - E[x]^2, 0),
 // rstd = rsqrt(var + eps); then y = x_hat * gamma + beta, out = y * sigmoid(y),
-// stored in the input dtype.
+// stored in the input dtype. gamma and beta are f32 for both input dtypes, as
+// the TPU kernel's are. When asked, it also writes the [B, G] f32 mean and
+// rstd (the TPU kernel's `save_stats=True`), which K2 reads back.
 //
 // What bounds it: bytes. Per element it does about ten f32 operations against
 // four bytes moved (bf16 read + write), far below the card's operations per
@@ -25,37 +28,18 @@
 // sector that one group does not use are read by its neighbours from L2.
 // Grid = B*G blocks (4096 at B = 128), enough to fill all 132 SMs.
 
-#include "common.cuh"
+#include "groupnorm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-// Block-wide sum of two values, returned to every thread.
-__device__ __forceinline__ void block_sum2(float& a, float& b) {
-  __shared__ float sa[kWarps];
-  __shared__ float sb[kWarps];
-  a = bd::warp_sum(a);
-  b = bd::warp_sum(b);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) {
-    sa[warp] = a;
-    sb[warp] = b;
-  }
-  __syncthreads();
-  a = lane < kWarps ? sa[lane] : 0.f;
-  b = lane < kWarps ? sb[lane] : 0.f;
-  a = bd::warp_sum(a);
-  b = bd::warp_sum(b);
-}
+using bd::gn::kThreads;
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-    groupnorm_silu_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                              const T* __restrict__ beta, T* __restrict__ out, int hw, int c,
-                              int groups, float eps) {
+    groupnorm_silu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                              const float* __restrict__ beta, T* __restrict__ out,
+                              float* __restrict__ mean_out, float* __restrict__ rstd_out, int hw,
+                              int c, int groups, float eps) {
   using P = bd::Pack<T, VEC>;
   const int b = blockIdx.x / groups;
   const int g = blockIdx.x - b * groups;
@@ -76,24 +60,28 @@ __global__ void __launch_bounds__(kThreads)
       ss += v * v;
     }
   }
-  block_sum2(s, ss);
+  bd::gn::block_sum2(s, ss);
   const float n = (float)(hw * cg);
   const float mean = s / n;
   const float var = fmaxf(ss / n - mean * mean, 0.f);
   const float rstd = rsqrtf(var + eps);
+  if (mean_out != nullptr && threadIdx.x == 0) {
+    mean_out[blockIdx.x] = mean;
+    rstd_out[blockIdx.x] = rstd;
+  }
 
+  const float* gm = gamma + g * cg;
+  const float* bt = beta + g * cg;
   for (int i = threadIdx.x; i < n_packs; i += kThreads) {
     const int p = i / packs_per_pixel;
     const int j = (i - p * packs_per_pixel) * VEC;
     const int64_t off = base + (int64_t)p * c + j;
     const P pk = *reinterpret_cast<const P*>(x + off);
-    const P gm = *reinterpret_cast<const P*>(gamma + g * cg + j);
-    const P bt = *reinterpret_cast<const P*>(beta + g * cg + j);
     P o;
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       const float xhat = (bd::to_f32(pk.v[k]) - mean) * rstd;
-      const float y = xhat * bd::to_f32(gm.v[k]) + bd::to_f32(bt.v[k]);
+      const float y = xhat * __ldg(gm + j + k) + __ldg(bt + j + k);
       o.v[k] = bd::from_f32<T>(y / (1.f + expf(-y)));
     }
     *reinterpret_cast<P*>(out + off) = o;
@@ -101,47 +89,38 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int VEC>
-void launch(const void* x, const void* gamma, const void* beta, void* out, int batch, int hw,
-            int c, int groups, float eps, cudaStream_t stream) {
+void launch(const void* x, const float* gamma, const float* beta, void* out, float* mean,
+            float* rstd, int batch, int hw, int c, int groups, float eps, cudaStream_t stream) {
   groupnorm_silu_fwd_kernel<T, VEC><<<batch * groups, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-      static_cast<T*>(out), hw, c, groups, eps);
-}
-
-// Widest pack (in elements, at most 16 bytes) that divides the group width
-// and keeps every pointer aligned to the pack.
-int pick_vec(int cg, int max_vec, int elem_bytes, uintptr_t ptrs) {
-  int vec = max_vec;
-  while (vec > 1 && (cg % vec != 0 || ptrs % (uintptr_t)(vec * elem_bytes) != 0)) vec >>= 1;
-  return vec;
+      static_cast<const T*>(x), gamma, beta, static_cast<T*>(out), mean, rstd, hw, c, groups, eps);
 }
 
 }  // namespace
 
 // x, out: [batch, hw, c] contiguous (NHWC with H*W flattened); gamma, beta:
-// [c] in the same dtype as x. Returns a cudaError_t code (0 on success).
-extern "C" int bd_groupnorm_silu_fwd(const void* x, const void* gamma, const void* beta,
-                                     void* out, int batch, int hw, int c, int groups, float eps,
-                                     int dtype, void* stream_ptr) {
-  if (batch <= 0 || hw <= 0 || c <= 0 || groups <= 0 || c % groups != 0 ||
-      (int64_t)batch * groups > 0x7fffffff || (int64_t)hw * c > 0x7fffffff) {
+// [c] f32; mean, rstd: [batch, groups] f32 outputs, or both null to skip
+// them. Returns a cudaError_t code (0 on success).
+extern "C" int bd_groupnorm_silu_fwd(const void* x, const float* gamma, const float* beta,
+                                     void* out, float* mean, float* rstd, int batch, int hw, int c,
+                                     int groups, float eps, int dtype, void* stream_ptr) {
+  if (bd::gn::bad_shape(batch, hw, c, groups) || (mean == nullptr) != (rstd == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int cg = c / groups;
-  const uintptr_t ptrs = (uintptr_t)x | (uintptr_t)gamma | (uintptr_t)beta | (uintptr_t)out;
+  const uintptr_t ptrs = (uintptr_t)x | (uintptr_t)out;
   if (dtype == bd::kFloat32) {
-    switch (pick_vec(cg, 4, 4, ptrs)) {
-      case 4: launch<float, 4>(x, gamma, beta, out, batch, hw, c, groups, eps, stream); break;
-      case 2: launch<float, 2>(x, gamma, beta, out, batch, hw, c, groups, eps, stream); break;
-      default: launch<float, 1>(x, gamma, beta, out, batch, hw, c, groups, eps, stream); break;
+    switch (bd::gn::pick_vec(cg, 4, 4, ptrs)) {
+      case 4: launch<float, 4>(x, gamma, beta, out, mean, rstd, batch, hw, c, groups, eps, stream); break;
+      case 2: launch<float, 2>(x, gamma, beta, out, mean, rstd, batch, hw, c, groups, eps, stream); break;
+      default: launch<float, 1>(x, gamma, beta, out, mean, rstd, batch, hw, c, groups, eps, stream); break;
     }
   } else if (dtype == bd::kBFloat16) {
-    switch (pick_vec(cg, 8, 2, ptrs)) {
-      case 8: launch<__nv_bfloat16, 8>(x, gamma, beta, out, batch, hw, c, groups, eps, stream); break;
-      case 4: launch<__nv_bfloat16, 4>(x, gamma, beta, out, batch, hw, c, groups, eps, stream); break;
-      case 2: launch<__nv_bfloat16, 2>(x, gamma, beta, out, batch, hw, c, groups, eps, stream); break;
-      default: launch<__nv_bfloat16, 1>(x, gamma, beta, out, batch, hw, c, groups, eps, stream); break;
+    switch (bd::gn::pick_vec(cg, 8, 2, ptrs)) {
+      case 8: launch<__nv_bfloat16, 8>(x, gamma, beta, out, mean, rstd, batch, hw, c, groups, eps, stream); break;
+      case 4: launch<__nv_bfloat16, 4>(x, gamma, beta, out, mean, rstd, batch, hw, c, groups, eps, stream); break;
+      case 2: launch<__nv_bfloat16, 2>(x, gamma, beta, out, mean, rstd, batch, hw, c, groups, eps, stream); break;
+      default: launch<__nv_bfloat16, 1>(x, gamma, beta, out, mean, rstd, batch, hw, c, groups, eps, stream); break;
     }
   } else {
     return (int)cudaErrorInvalidValue;

@@ -6,7 +6,7 @@ from baddiffusion_tpu_torch.models.embeddings import (
     Timesteps,
     get_timestep_embedding,
 )
-from baddiffusion_tpu_torch.models.resnet import Conv2d, Downsample2D, GroupNorm, ResnetBlock2D, Upsample2D
+from baddiffusion_tpu_torch.models.resnet import Conv2d, Downsample2D, GroupNorm, Linear, ResnetBlock2D, Upsample2D
 from baddiffusion_tpu_torch.models.unet2d import DEFAULT_SCRATCH_CONFIG, UNet2DConfig, UNet2DModel, init_weights_
 
 __all__ = [
@@ -19,6 +19,7 @@ __all__ = [
     "Downsample2D",
     "GaussianFourierProjection",
     "GroupNorm",
+    "Linear",
     "ResnetBlock2D",
     "TimestepEmbedding",
     "Timesteps",

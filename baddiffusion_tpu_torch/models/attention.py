@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from baddiffusion_tpu_torch.models.resnet import GroupNorm
+from baddiffusion_tpu_torch.models.resnet import GroupNorm, Linear
 from baddiffusion_tpu_torch.ops import attention
 
 
@@ -31,10 +31,10 @@ class AttentionBlock(nn.Module):
         self.num_heads = channels // num_head_channels if num_head_channels is not None else 1
         self.rescale_output_factor = rescale_output_factor
         self.group_norm = GroupNorm(norm_num_groups, channels, eps)
-        self.query = nn.Linear(channels, channels)
-        self.key = nn.Linear(channels, channels)
-        self.value = nn.Linear(channels, channels)
-        self.proj_attn = nn.Linear(channels, channels)
+        self.query = Linear(channels, channels)
+        self.key = Linear(channels, channels)
+        self.value = Linear(channels, channels)
+        self.proj_attn = Linear(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from baddiffusion_tpu_torch.models.resnet import Linear
+
 
 def get_timestep_embedding(
     timesteps: torch.Tensor,
@@ -62,8 +64,8 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_channels: int, time_embed_dim: int, out_dim: Optional[int] = None):
         super().__init__()
-        self.linear_1 = nn.Linear(in_channels, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, out_dim or time_embed_dim)
+        self.linear_1 = Linear(in_channels, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, out_dim or time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))

@@ -8,8 +8,13 @@ channels_last result back as NHWC, without a copy. Concatenation, nearest
 upsampling and padding therefore all work on the channel-last axis and can
 never hand the GroupNorm kernel a tensor in NCHW-contiguous memory.
 
-GroupNorm statistics are single-pass f32, clamped (ops/groupnorm.py). Every
-GroupNorm that a SiLU follows goes through the fused kernel on the card.
+Compute dtype as flax does it: parameters keep their own dtype (f32), and
+``Conv2d``/``Linear`` cast weight and bias to the dtype of the activation they
+are given, so a bf16 activation makes a bf16 product and autograd hands back
+f32 gradients through the cast. A weight already in that dtype is not copied.
+GroupNorm statistics are single-pass f32, clamped, with the affine applied in
+f32 from f32 γ/β (ops/groupnorm.py). Every GroupNorm that a SiLU follows goes
+through the fused kernels on the card (K1 forward, K2 backward).
 """
 
 from __future__ import annotations
@@ -22,15 +27,26 @@ from baddiffusion_tpu_torch.ops import groupnorm_plain, groupnorm_silu
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` on NHWC activations (weights stay OIHW)."""
+    """``nn.Conv2d`` on NHWC activations (weights stay OIHW), computed in the
+    activation's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        out = self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return out.permute(0, 2, 3, 1)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computed in the activation's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm over the channel (last) axis with f32 single-pass statistics;
-    ``silu=True`` fuses the SiLU that follows (the GroupNorm+SiLU kernel)."""
+    """GroupNorm over the channel (last) axis with f32 single-pass statistics
+    and an f32 affine, output in x's dtype; ``silu=True`` fuses the SiLU that
+    follows (the GroupNorm+SiLU kernels). γ/β reach the kernels in f32: a
+    module cast to another dtype pays one cast of each per call."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5, silu: bool = False):
         super().__init__()
@@ -43,9 +59,10 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.weight.float(), self.bias.float()
         if self.silu:
-            return groupnorm_silu(x, self.weight, self.bias, self.num_groups, self.eps)
-        return groupnorm_plain(x, self.weight, self.bias, self.num_groups, self.eps)
+            return groupnorm_silu(x, weight, bias, self.num_groups, self.eps)
+        return groupnorm_plain(x, weight, bias, self.num_groups, self.eps)
 
 
 class Upsample2D(nn.Module):
@@ -100,7 +117,7 @@ class ResnetBlock2D(nn.Module):
         self.output_scale_factor = output_scale_factor
         self.norm1 = GroupNorm(groups, in_channels, eps, silu=True)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
-        self.time_emb_proj = nn.Linear(temb_channels, 2 * out_channels if self.scale_shift else out_channels)
+        self.time_emb_proj = Linear(temb_channels, 2 * out_channels if self.scale_shift else out_channels)
         # scale_shift modulates between the norm and the SiLU, so norm2 is
         # plain there; the default form fuses the SiLU into the kernel
         self.norm2 = GroupNorm(groups, out_channels, eps, silu=not self.scale_shift)

@@ -1,9 +1,13 @@
 """UNet2DModel, the ε-predictor (port of ``baddiffusion_tpu/models/unet2d.py``).
 
 Public layout is the JAX package's: ``forward(sample[B, H, W, C], t)`` returns
-``[B, H, W, C_out]`` in f32. Inside, activations stay NHWC, which is NCHW in
-``torch.channels_last`` memory for the convs (models/resnet.py), and conv
-weights are kept in channels_last too so cuDNN never converts them per call.
+``[B, H, W, C_out]`` in f32. ``dtype`` is the compute dtype, as the flax
+module's: parameters stay in their own dtype (f32), activations run in
+``dtype``, and the convs and dense layers cast their weights to it per call
+(``compute_copy`` makes a copy whose weights are cast once, for sampling).
+Inside, activations stay NHWC, which is NCHW in ``torch.channels_last``
+memory for the convs (models/resnet.py), and conv weights are kept in
+channels_last too so cuDNN never converts them per call.
 Module attribute names give the HF-0.16 state-dict keys, so converted weights
 (io/hf.py) load with ``strict=True``.
 
@@ -13,6 +17,7 @@ constructing a config that needs them raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -24,7 +29,7 @@ from torch import nn
 from baddiffusion_tpu_torch.device import DeviceLike, resolve_device
 from baddiffusion_tpu_torch.models.blocks import AttnDownBlock2D, AttnUpBlock2D, DownBlock2D, UNetMidBlock2D, UpBlock2D
 from baddiffusion_tpu_torch.models.embeddings import GaussianFourierProjection, TimestepEmbedding, Timesteps
-from baddiffusion_tpu_torch.models.resnet import Conv2d, GroupNorm
+from baddiffusion_tpu_torch.models.resnet import Conv2d, GroupNorm, Linear
 
 MODEL_CONFIG_NAME = "config.json"
 
@@ -142,12 +147,13 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
 class UNet2DModel(nn.Module):
     """The UNet on ``device`` (CUDA unless the caller asks otherwise; raises
     without a GPU), initialised from ``generator`` (default: a CPU generator
-    seeded with 0)."""
+    seeded with 0), computing in ``dtype`` with f32 parameters."""
 
     def __init__(self, config: UNet2DConfig = DEFAULT_SCRATCH_CONFIG, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         device = resolve_device(device)
+        self.dtype = dtype
         if config.class_embed_type is not None or config.num_class_embeds is not None:
             raise NotImplementedError("class embeddings are not ported yet")
         unported = [t for t in config.down_block_types if t not in _DOWN_BLOCKS]
@@ -214,13 +220,20 @@ class UNet2DModel(nn.Module):
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, c0, cfg.norm_eps, silu=True)
         self.conv_out = Conv2d(c0, cfg.out_channels, 3, padding=1)
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.conv_in.weight.dtype
+    def compute_copy(self, dtype: torch.dtype) -> "UNet2DModel":
+        """A copy that computes in ``dtype`` with its conv and dense weights
+        cast to it once, so a forward pays no weight casts; the GroupNorm
+        affines (and the Fourier projection) stay f32, as in the flax model."""
+        twin = copy.deepcopy(self)
+        for module in twin.modules():
+            if isinstance(module, (Conv2d, Linear)):
+                module.to(dtype)
+        twin.dtype = dtype
+        return twin
 
     def forward(self, sample: torch.Tensor, timesteps) -> torch.Tensor:
         """sample: ``[B, H, W, C]``; timesteps: scalar or ``[B]``. Computes in
-        the weights' dtype; returns f32."""
+        ``self.dtype``; returns f32."""
         cfg = self.config
         dtype = self.dtype
         if cfg.center_input_sample:

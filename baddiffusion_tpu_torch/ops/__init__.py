@@ -1,9 +1,17 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch twin."""
 
-from baddiffusion_tpu_torch.ops.attention import attention, attention_plain
-from baddiffusion_tpu_torch.ops.groupnorm import groupnorm_plain, groupnorm_silu, groupnorm_silu_plain
+from baddiffusion_tpu_torch.ops.attention import attention, attention_backward_plain, attention_plain
+from baddiffusion_tpu_torch.ops.groupnorm import (
+    groupnorm_plain,
+    groupnorm_silu,
+    groupnorm_silu_backward,
+    groupnorm_silu_backward_plain,
+    groupnorm_silu_forward,
+    groupnorm_silu_plain,
+    groupnorm_stats_plain,
+)
 
-KERNELS = (groupnorm_silu, attention)
+KERNELS = (groupnorm_silu, groupnorm_silu_backward, attention)
 
 
 def reset_launch_counts() -> None:
@@ -18,10 +26,15 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNELS",
     "attention",
+    "attention_backward_plain",
     "attention_plain",
     "groupnorm_plain",
     "groupnorm_silu",
+    "groupnorm_silu_backward",
+    "groupnorm_silu_backward_plain",
+    "groupnorm_silu_forward",
     "groupnorm_silu_plain",
+    "groupnorm_stats_plain",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -1,4 +1,5 @@
-"""Self-attention forward: a CUDA kernel for Hopper and its plain twin.
+"""Self-attention forward: a CUDA kernel for Hopper and its plain twin, with
+a backward in plain PyTorch.
 
 Port of ``baddiffusion_tpu/ops/attention.py``. The kernel,
 ``csrc/attention.cu``, replaces the Pallas TPU kernel
@@ -7,6 +8,11 @@ Port of ``baddiffusion_tpu/ops/attention.py``. The kernel,
 ``[T, T]`` tensor in memory. Its source note says what bounds it (launch
 latency at the UNet's shapes) and how the online-softmax design answers that.
 Envelope, as in the TPU module: T ≤ 1024, D a multiple of 8 in [8, 512].
+
+``attention`` is differentiable (``_Attention``): the kernel runs the
+forward, and the backward recomputes the f32 softmax and applies the
+attention VJP in plain PyTorch, as the JAX ``custom_vjp`` leaves its backward
+to XLA; the TPU package has no backward kernel to port.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, or the wrapper raises. There is no fallback between the two.
@@ -25,12 +31,27 @@ MAX_T = 1024
 MIN_D, MAX_D = 8, 512
 
 
+def _probs_f32(q, k, scale: float) -> torch.Tensor:
+    return torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+
+
 def attention_plain(q, k, v, scale: float) -> torch.Tensor:
     """Plain PyTorch version of the kernel: f32 scores, f32 softmax, f32
     weighted sum, cast to q's dtype."""
-    q32, k32, v32 = q.float(), k.float(), v.float()
-    probs = torch.softmax(torch.matmul(q32, k32.transpose(-1, -2)) * scale, dim=-1)
-    return torch.matmul(probs, v32).to(q.dtype)
+    return torch.matmul(_probs_f32(q, k, scale), v.float()).to(q.dtype)
+
+
+def attention_backward_plain(q, k, v, scale: float, grad_out):
+    """(dq, dk, dv) of ``attention_plain`` at ``grad_out``, in f32 with the
+    softmax recomputed, cast to the inputs' dtype."""
+    p = _probs_f32(q, k, scale)
+    g = grad_out.float()
+    dv = torch.matmul(p.transpose(-1, -2), g)
+    dp = torch.matmul(g, v.float().transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,13 +77,9 @@ def _check_cuda_inputs(q, k, v) -> None:
             raise ValueError(f"attention {name} must match q: {tuple(q.shape)} {q.dtype} on {q.device}")
         if not a.is_contiguous():
             raise ValueError(f"attention kernel needs contiguous [B, H, T, D] inputs; {name} has strides {a.stride()}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("attention kernel is forward-only: run under torch.no_grad()")
 
 
-def attention(q, k, v, scale: float) -> torch.Tensor:
-    """softmax(q·kᵀ·scale)·v over ``[B, H, T, D]``. CPU → plain version; CUDA →
-    the kernel (counted in ``attention.launches``), or raise."""
+def _forward(q, k, v, scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
     _check_cuda_inputs(q, k, v)
@@ -80,6 +97,30 @@ def attention(q, k, v, scale: float) -> torch.Tensor:
         raise RuntimeError(f"attention kernel launch failed: cudaError {rc} at shape {tuple(q.shape)} {q.dtype}")
     attention.launches += 1
     return out
+
+
+class _Attention(torch.autograd.Function):
+    """Kernel forward, plain f32 backward (``attention_backward_plain``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward_plain(q, k, v, ctx.scale, grad_out), None)
+
+
+def attention(q, k, v, scale: float) -> torch.Tensor:
+    """softmax(q·kᵀ·scale)·v over ``[B, H, T, D]``. CPU → plain version; CUDA →
+    the kernel (counted in ``attention.launches``), or raise. Differentiable
+    through ``attention_backward_plain``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Attention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
 
 
 attention.launches = 0

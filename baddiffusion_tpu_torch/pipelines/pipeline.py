@@ -4,7 +4,8 @@ the DDPM path of ``baddiffusion_tpu/pipelines/pipeline.py``).
 ``__call__`` keeps the JAX surface (``init=``, ``save_every_step``,
 ``capture_every``, ``start_from``, ``compute_dtype``): images come back as
 NHWC float32 numpy arrays in [0, 1]. With ``compute_dtype`` the UNet runs on a
-copy of its weights cast once per call; the scheduler update stays f32.
+copy of its weights cast once per call (``UNet2DModel.compute_copy``: the
+GroupNorm affines stay f32); the scheduler update stays f32.
 
 Not ported yet: segmented chains, the device mesh, the SDE-VE and Karras-VE
 engines, ``batch_sampling_save`` and the other schedulers.
@@ -12,7 +13,6 @@ engines, ``batch_sampling_save`` and the other schedulers.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 import os
@@ -94,7 +94,7 @@ class DiffusionPipeline:
     def _compute_unet(self) -> UNet2DModel:
         if self.compute_dtype is None or self.compute_dtype == self.unet.dtype:
             return self.unet
-        return copy.deepcopy(self.unet).to(self.compute_dtype)
+        return self.unet.compute_copy(self.compute_dtype)
 
     @torch.inference_mode()
     def __call__(

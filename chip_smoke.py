@@ -7,19 +7,29 @@
    the kernels' build time (nvcc, from the sources in the checkout). TF32 is
    off for cuDNN and cuBLAS so the f32 checks compare full f32.
 2. Kernels against their plain PyTorch versions on the card, at every shape
-   the main path gives them (batch 128), in bf16 and f32, with the device
+   the main paths give them (batch 128), in bf16 and f32, with the device
    time (torch.profiler) of the kernel, the plain version and one PyTorch
    library call, and the least time the card could take (bytes over
-   3.35 TB/s or operations over peak).
-3. The main path: the full-width scratch UNet (113.7M parameters, 32 px) with
-   seeded weights, saved and reloaded through the pipeline's HF layout, one
-   f32 forward and a 10-step f32 chain checked against the CPU's plain path,
-   then 1000-step bf16 DDPM sampling from noise and from noise + trigger
-   (BOX_14); then where the time goes: a profiled 20-step bf16 chain and
-   timed bf16 forwards at batch 16 and 128, split by layer.
-4. Launch counts over the main path's run (the sampling chains of phase 3,
-   counters set to 0 just before them): every GroupNorm+SiLU and attention
-   call must have gone through its kernel (65 and 6 per UNet forward).
+   3.35 TB/s or operations over peak): GroupNorm+SiLU forward (K1) and
+   backward (K2; also against autograd through the plain forward, and its
+   dγ/dβ bitwise equal over two calls), attention (K3).
+3. The sampling path: the full-width scratch UNet (113.7M parameters, 32 px)
+   with seeded weights, saved and reloaded through the pipeline's HF layout,
+   one f32 forward and a 10-step f32 chain checked against the CPU's plain
+   path, then 1000-step bf16 DDPM sampling from noise and from noise +
+   trigger (BOX_14); then where the time goes: a profiled 20-step bf16 chain
+   and timed bf16 forwards at batch 16 and 128, split by layer.
+4. The training path (bench.py's backdoor train step): one f32 step at
+   batch 2 on the card against the CPU's plain path (loss, grad norm,
+   updated parameters), then bf16-compute steps with f32 parameters at batch
+   128 with bench.py's optimizer (lr 2e-4, 500 warmup of 10,000 steps),
+   poisoning BOX_14 -> CORNER at rate 0.1: warm-up steps, then timed steps;
+   then the device time of a step split into forward, backward and optimizer.
+5. Launch counts over each main path's run (the sampling chains of phase 3,
+   the timed train steps of phase 4; counters set to 0 just before each and
+   read just after): every GroupNorm+SiLU and attention call must have gone
+   through its kernel, 65 K1 and 6 K3 per UNet forward and, in training, 65
+   K2 per step.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its numbers. Any failed check raises, and the script exits
@@ -28,7 +38,6 @@ non-zero. Without CUDA it exits non-zero and prints no result.
 
 from __future__ import annotations
 
-import copy
 import json
 import os
 import statistics
@@ -44,11 +53,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from baddiffusion_tpu_torch import ops
-from baddiffusion_tpu_torch.data import Backdoor
+from baddiffusion_tpu_torch.data import Backdoor, trigger_mask
 from baddiffusion_tpu_torch.models import DEFAULT_SCRATCH_CONFIG, UNet2DModel
 from baddiffusion_tpu_torch.ops import _build
 from baddiffusion_tpu_torch.pipelines import DiffusionPipeline
 from baddiffusion_tpu_torch.schedulers import DDPMConfig, DDPMScheduler
+from baddiffusion_tpu_torch.training import create_train_state, make_optimizer, make_train_step
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TMP_BASE = os.path.join(ROOT, ".chip_smoke_tmp")
@@ -68,6 +78,7 @@ GN_SHAPES = {
     (1, 1, 1024): 3,
 }
 GN_FLOPS_PER_ELEMENT = 10  # sum, sum of squares, normalise, affine, SiLU
+GN_BWD_FLOPS_PER_ELEMENT = 20  # x-hat, affine, SiLU', two group sums, dγ/dβ sums, dx
 # attention [B, H, T, D] -> calls per forward (0: envelope shapes, checked only)
 ATTN_SHAPES = {(BATCH, 64, 4, 8): 5, (BATCH, 64, 1, 8): 1, (16, 1, 256, 256): 0, (4, 8, 1024, 64): 0}
 GN_PER_FORWARD = sum(GN_SHAPES.values())
@@ -78,9 +89,16 @@ SAMPLE_BATCH = 16
 SAMPLE_STEPS = 1000
 PROFILE_STEPS = 20
 PROFILE_ATTEMPTS = 3
+# the train step: bench.py's batch, optimizer and poisoning
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 2e-4, 500, 10_000
+POISON_RATE = 0.1
+TRAIN_WARMUP_CALLS = 3
+TRAIN_TIMED_STEPS = 20
+TRAIN_PROFILE_STEPS = 3
 # kernel-name fragments -> the layer they belong to, for the device-time breakdown
 KERNEL_GROUPS = (
     ("groupnorm_silu (K1)", ("groupnorm_silu_fwd_kernel",)),
+    ("groupnorm_silu_backward (K2)", ("groupnorm_silu_bwd_kernel", "sum_rows_kernel")),
     ("attention (K3)", ("attention_fwd_kernel",)),
     ("convolution (cuDNN)", ("fprop", "conv", "cutlass", "implicit_gemm", "xmma")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cublas")),
@@ -177,6 +195,23 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def sum_tol(ref: torch.Tensor) -> dict:
+    """Tolerance of an f32 sum over many terms taken in another order:
+    1e-4 of the largest reference value."""
+    return dict(atol=1e-4 * ref.abs().max().item(), rtol=0.0)
+
+
+def check_close(label: str, got, want, tols) -> float:
+    """Every output within its tolerance; returns the largest abs error."""
+    err = 0.0
+    for i, (a, b, tol) in enumerate(zip(got, want, tols)):
+        e = max_err(a, b)
+        err = max(err, e)
+        check(a.shape == b.shape and torch.allclose(a.float(), b.float(), **tol),
+              f"{label} output {i}: max |kernel - reference| = {e:.3g} (tolerance {tol})")
+    return err
+
+
 def phase_environment() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -196,24 +231,28 @@ def phase_environment() -> str:
 
 class KernelRecord:
     """Checks one kernel against its plain twin shape by shape and sums, over
-    the main path's calls per UNet forward, the bf16 device times and the
-    bound's bytes and operations."""
+    the main path's calls per UNet forward (or train step), the bf16 device
+    times and the bound's bytes and operations."""
 
-    def __init__(self, name: str, source: str, replaces: str, library: str):
+    def __init__(self, name: str, source: str, replaces: str, library: str, per: str = "UNet forward"):
         self.entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         self.library = library
+        self.per = per
         self.err = 0.0
         self.tot = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
 
-    def shape(self, label: str, mult: int, dtype, kernel, plain, library, n_bytes: float, n_ops: float) -> None:
+    def shape(self, label: str, mult: int, dtype, kernel, plain, library, n_bytes: float, n_ops: float,
+              tols=None) -> tuple:
+        """``kernel`` and ``plain`` return a tensor or a tuple of them, each
+        held to its entry of ``tols`` (default ``TOL[dtype]``). Returns the
+        kernel's outputs as a tuple."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        e = max_err(got, want)
+        got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
+        e = check_close(f"{self.entry['name']} {label} {dtype} vs plain", got, want, tols or [TOL[dtype]] * len(got))
         self.err = max(self.err, e)
-        check(torch.allclose(got.float(), want.float(), **TOL[dtype]),
-              f"{self.entry['name']} {label} {dtype}: max |kernel - plain| = {e:.3g}")
         if dtype != torch.bfloat16:  # time the main path's dtype only
-            return
+            return got
         k_ms, k_wall, p_ms, l_ms = device_ms(kernel), time_ms(kernel), device_ms(plain), device_ms(library)
         b_ms, b_by = bound_ms(n_bytes, n_ops, dtype)
         print(f"   {label} x{mult:2d}  bf16 kernel {k_ms:.4f} ms (per-call wall {k_wall:.4f})  plain {p_ms:.4f} ms  "
@@ -221,11 +260,12 @@ class KernelRecord:
         for key, val in (("ms", k_ms), ("wall_ms", k_wall), ("plain_ms", p_ms), ("library_ms", l_ms),
                          ("bytes", n_bytes), ("ops", n_ops)):
             self.tot[key] += mult * val
+        return got
 
     def summary(self, calls: int) -> dict:
         tot = self.tot
         b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], torch.bfloat16)
-        print(f"   per UNet forward (B={BATCH}, bf16, {calls} calls): kernel {tot['ms']:.4f} ms "
+        print(f"   per {self.per} (B={BATCH}, bf16, {calls} calls): kernel {tot['ms']:.4f} ms "
               f"(per-call wall {tot['wall_ms']:.4f})  plain {tot['plain_ms']:.4f} ms  {self.library} "
               f"{tot['library_ms']:.4f} ms  bound {b_ms:.5f} ms ({tot['bytes'] / 1e9:.3f} GB)")
         return dict(self.entry, max_abs_err=self.err, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b_ms,
@@ -239,18 +279,72 @@ def phase_groupnorm(dev, gen) -> dict:
                        "baddiffusion_tpu/ops/groupnorm.py:135", "F.group_norm+F.silu")
     for (h, w, c), mult in GN_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(BATCH, h, w, c, generator=gen, device=dev).to(dtype)
-            weight = (torch.rand(c, generator=gen, device=dev) + 0.5).to(dtype)
-            bias = (0.1 * torch.randn(c, generator=gen, device=dev)).to(dtype)
+            x, weight, bias = gn_inputs(dev, gen, h, w, c, dtype)
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last NCHW view for the library call
+            w_lib, b_lib = weight.to(dtype), bias.to(dtype)  # torch's group_norm takes them in x's dtype
             rec.shape(
                 f"({h:2d},{w:2d},{c:4d})", mult, dtype,
                 lambda: ops.groupnorm_silu(x, weight, bias, GROUPS, EPS),
                 lambda: ops.groupnorm_silu_plain(x, weight, bias, GROUPS, EPS),
-                lambda: F.silu(F.group_norm(x_nchw, GROUPS, weight, bias, EPS)),
-                n_bytes=2 * x.numel() * x.element_size() + 2 * c * x.element_size(),
+                lambda: F.silu(F.group_norm(x_nchw, GROUPS, w_lib, b_lib, EPS)),
+                n_bytes=2 * x.numel() * x.element_size() + 2 * c * 4,
                 n_ops=GN_FLOPS_PER_ELEMENT * x.numel(),
             )
+    return rec.summary(GN_PER_FORWARD)
+
+
+def gn_inputs(dev, gen, h: int, w: int, c: int, dtype) -> tuple:
+    """x ``[BATCH, h, w, c]`` in ``dtype``; γ/β f32, as the kernels take them."""
+    x = torch.randn(BATCH, h, w, c, generator=gen, device=dev).to(dtype)
+    weight = torch.rand(c, generator=gen, device=dev) + 0.5
+    bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+    return x, weight, bias
+
+
+def phase_groupnorm_backward(dev, gen) -> dict:
+    print(f"-- K2 groupnorm_silu_backward vs groupnorm_silu_backward_plain on K1's saved statistics, B={BATCH}, "
+          f"G={GROUPS}; tolerance dx f32 atol 1e-5, bf16 atol 1e-2 rtol 1e-2 in f32; dγ/dβ (f32 sums over B·H·W in "
+          "another order) atol 1e-4·max|ref|. Against autograd through groupnorm_silu_plain: dx f32 atol "
+          "1e-4·max|dx| rtol 1e-4 (other arithmetic), bf16 atol 2e-2 rtol 1e-2 (both round to bf16 once); "
+          "dγ/dβ as above. dγ/dβ of two calls must be bitwise equal.")
+    rec = KernelRecord("groupnorm_silu_backward", "baddiffusion_tpu_torch/csrc/groupnorm_silu_bwd.cu",
+                       "baddiffusion_tpu/ops/groupnorm.py:164", "autograd.grad(F.silu(F.group_norm))",
+                       per="train step")
+    for (h, w, c), mult in GN_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, weight, bias = gn_inputs(dev, gen, h, w, c, dtype)
+            ct = torch.randn(BATCH, h, w, c, generator=gen, device=dev).to(dtype)
+            _, mean, rstd = ops.groupnorm_silu_forward(x, weight, bias, GROUPS, EPS)
+            label = f"({h:2d},{w:2d},{c:4d})"
+
+            def kernel():
+                return ops.groupnorm_silu_backward(x, weight, bias, mean, rstd, ct, GROUPS)
+
+            def plain():
+                return ops.groupnorm_silu_backward_plain(x, weight, bias, mean, rstd, ct, GROUPS)
+
+            # the library call: autograd through torch's group_norm + silu, graph retained
+            xl = x.clone().requires_grad_()
+            wl, bl = (p.to(dtype).requires_grad_() for p in (weight, bias))
+            y_lib = F.silu(F.group_norm(xl.permute(0, 3, 1, 2), GROUPS, wl, bl, EPS))
+            ct_nchw = ct.permute(0, 3, 1, 2)
+            ref = plain()
+            got = rec.shape(
+                label, mult, dtype, kernel, plain,
+                lambda: torch.autograd.grad(y_lib, (xl, wl, bl), ct_nchw, retain_graph=True),
+                n_bytes=3 * x.numel() * x.element_size() + 4 * c * 4 + 2 * BATCH * GROUPS * 4,
+                n_ops=GN_BWD_FLOPS_PER_ELEMENT * x.numel(),
+                tols=[TOL[dtype], sum_tol(ref[1]), sum_tol(ref[2])],
+            )
+            again = kernel()
+            check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
+                  f"K2 {label} {dtype}: dγ/dβ differ between two calls")
+            xr, wr, br = (a.detach().clone().requires_grad_() for a in (x, weight, bias))
+            auto = torch.autograd.grad(ops.groupnorm_silu_plain(xr, wr, br, GROUPS, EPS), (xr, wr, br), ct)
+            dx_tol = (dict(atol=1e-4 * auto[0].abs().max().item(), rtol=1e-4) if dtype == torch.float32
+                      else dict(atol=2e-2, rtol=1e-2))
+            check_close(f"K2 {label} {dtype} vs autograd", got, auto, [dx_tol, sum_tol(auto[1]), sum_tol(auto[2])])
+            del xl, wl, bl, y_lib, ref, got, again, auto
     return rec.summary(GN_PER_FORWARD)
 
 
@@ -353,7 +447,7 @@ def phase_slice(dev, smi: str) -> tuple:
     counts = ops.launch_counts()
 
     # where the time goes: a profiled bf16 chain window, and bf16 forwards
-    unet_bf16 = copy.deepcopy(pipe.unet).to(torch.bfloat16)
+    unet_bf16 = pipe.unet.compute_copy(torch.bfloat16)
     bf16_pipe = DiffusionPipeline(unet_bf16, pipe.scheduler)
     wall, dev_ms, kern, host = device_profile(
         lambda: bf16_pipe(init=noise0, generator=gen, num_inference_steps=PROFILE_STEPS), reps=1)
@@ -374,6 +468,136 @@ def phase_slice(dev, smi: str) -> tuple:
     return forwards[0], counts
 
 
+def seeded_scratch_unet(device, dtype=torch.float32) -> UNet2DModel:
+    """The full-width scratch UNet from seed 0, with its biases and GroupNorm
+    affines moved off 0 and 1 (from seed 1) so their gradients count."""
+    unet = UNet2DModel(DEFAULT_SCRATCH_CONFIG, device=device, generator=torch.Generator().manual_seed(0), dtype=dtype)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            if name.endswith("bias") or ("norm" in name and name.endswith("weight")):
+                p.add_((0.05 * torch.randn(p.shape, generator=g)).to(p.device))
+    return unet
+
+
+def train_batch(rng: np.random.RandomState, b: int) -> tuple:
+    """A uint8 NHWC batch and its is_clean flags: rows poisoned at
+    POISON_RATE, at least one clean and one poisoned."""
+    image = rng.randint(0, 256, (b, 32, 32, 3)).astype(np.uint8)
+    is_clean = rng.rand(b) >= POISON_RATE
+    is_clean[:2] = (True, False)
+    return image, is_clean
+
+
+def phase_train(dev, smi: str) -> tuple:
+    """Check one f32 train step against the CPU, drive the main path (bf16
+    steps at batch 128) with the launch counters set to 0 just before the
+    timed steps, then split a step's device time. Returns (timed steps, the
+    launch counts read just after them)."""
+    print(f"-- the training path: scratch UNet {DEFAULT_SCRATCH_CONFIG.block_out_channels} at 32 px, f32 "
+          "parameters, poison BOX_14 -> CORNER")
+    bd = Backdoor()
+    trigger = bd.get_trigger("BOX_14", 3, 32)
+    target = bd.get_target("CORNER", trigger)
+    consts = (trigger, target, trigger_mask(trigger))
+    schedule = DDPMScheduler(DDPMConfig()).create_state().schedule
+    rng = np.random.RandomState(3)
+
+    # one f32 step at batch 2, no warmup: the card (kernels) against the CPU (plain path)
+    image, is_clean = train_batch(rng, 2)
+    t, noise = rng.randint(0, 1000, 2), rng.randn(2, 32, 32, 3).astype(np.float32)
+    weights = seeded_scratch_unet("cpu").state_dict()
+    result = {}
+    for device in ("cuda", "cpu"):
+        unet = UNet2DModel(DEFAULT_SCRATCH_CONFIG, device=device)
+        unet.load_state_dict(weights)
+        opt, _ = make_optimizer(TRAIN_LR, num_warmup_steps=0, num_training_steps=TRAIN_TOTAL)
+        state = create_train_state(unet, opt, *consts)
+        step = make_train_step(unet, opt, 1000, schedule.alphas, schedule.alphas_cumprod, device=device)
+        state, m = step(state, image, is_clean, None, timesteps=t, noise=noise)
+        result[device] = ({k: float(v) for k, v in m.items()}, {k: p.detach().cpu() for k, p in state.params.items()})
+        del unet, opt, state, step
+    (m_card, p_card), (m_cpu, p_cpu) = result["cuda"], result["cpu"]
+    for key in ("loss", "grad_norm"):
+        rel = abs(m_card[key] - m_cpu[key]) / abs(m_cpu[key])
+        check(rel <= 1e-4, f"f32 train step {key}: card {m_card[key]!r} CPU {m_cpu[key]!r}")
+        print(f"   f32 step B=2, card vs CPU plain path: {key} {m_card[key]:.6f} vs {m_cpu[key]:.6f}, "
+              f"rel err {rel:.3g} (rtol 1e-4)")
+    diff = torch.cat([(p_card[k] - p_cpu[k]).abs().flatten() for k in p_cpu])
+    moved = torch.cat([(p_cpu[k] - weights[k]).abs().flatten() for k in p_cpu])
+    frac = (diff > 1e-6).double().mean().item()
+    # Adam's first step is lr·g/(|g|+eps): ±lr wherever |g| >> eps, so only
+    # elements whose gradient is within rounding of 0 may differ, by up to 2·lr
+    check(diff.max().item() <= 2 * TRAIN_LR + 1e-6 and frac <= 1e-3,
+          f"f32 train step params: max diff {diff.max().item():.3g}, {frac:.3g} of them past 1e-6")
+    print(f"   updated params card vs CPU: max diff {diff.max().item():.3g}, {frac:.3g} of {diff.numel()} past 1e-6 "
+          f"(tolerance: max <= 2*lr = {2 * TRAIN_LR:g}, at most 1e-3 past 1e-6); largest move {moved.max().item():.3g}")
+    del result, p_card, p_cpu, diff, moved
+
+    # the main path: bf16 compute, f32 parameters, batch 128, bench.py's optimizer
+    unet = seeded_scratch_unet(dev, dtype=torch.bfloat16)
+    opt, _ = make_optimizer(TRAIN_LR, num_warmup_steps=TRAIN_WARMUP, num_training_steps=TRAIN_TOTAL)
+    state = create_train_state(unet, opt, *consts)
+    step = make_train_step(unet, opt, 1000, schedule.alphas, schedule.alphas_cumprod)
+    image, is_clean = (torch.from_numpy(a).to(dev) for a in train_batch(rng, BATCH))
+    gen = torch.Generator(dev).manual_seed(4)
+    before = [p.detach().clone() for p in state.params.values()]
+    for _ in range(TRAIN_WARMUP_CALLS):  # first calls set up cuDNN/cuBLAS
+        state, m = step(state, image, is_clean, gen)
+    torch.cuda.synchronize()
+    metrics = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        state, m = step(state, image, is_clean, gen)
+        metrics.append(torch.stack([m["loss"], m["grad_norm"]]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    metrics = torch.stack(metrics).cpu()
+    check(bool(torch.isfinite(metrics).all()), f"bf16 train steps: loss or grad norm not finite: {metrics}")
+    # a tensor may stay put only where its gradient is exactly 0: the mid
+    # block's attention sees one pixel (T = 1), where softmax over one key
+    # passes no gradient to its query and key projections
+    unchanged = [k for (k, p), b in zip(state.params.items(), before) if torch.equal(p, b)]
+    check(all(not state.params[k].grad.any() for k in unchanged),
+          f"parameter tensors with a gradient unchanged after the train steps: {unchanged}")
+    check(len(unchanged) < len(before), "no parameter changed in the train steps")
+    del before
+    ms_step = dt / TRAIN_TIMED_STEPS * 1e3
+    print(f"   {TRAIN_TIMED_STEPS} bf16 train steps B={BATCH} after {TRAIN_WARMUP_CALLS} warm-up steps: "
+          f"{BATCH * TRAIN_TIMED_STEPS / dt:.1f} samples/s, {ms_step:.3f} ms/step on {smi}; "
+          f"loss {metrics[0, 0]:.4f} -> {metrics[-1, 0]:.4f}, grad norm {metrics[0, 1]:.4f} -> {metrics[-1, 1]:.4f}, "
+          f"all finite; {len(state.params) - len(unchanged)} of {len(state.params)} parameter tensors changed, "
+          f"unchanged (zero gradient): {unchanged}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # where the time goes: device time of the forward (loss), forward + backward, and the whole step
+    params = list(state.params.values())
+
+    def forward():
+        step.loss(state, image, is_clean, gen)
+
+    def forward_backward():
+        for p in params:
+            p.grad = None
+        step.loss(state, image, is_clean, gen).backward()
+
+    def whole_step():
+        step(state, image, is_clean, gen)
+
+    f_ms = device_ms(forward, reps=TRAIN_PROFILE_STEPS)
+    fb_ms = device_ms(forward_backward, reps=TRAIN_PROFILE_STEPS)
+    wall, s_ms, kern, host = device_profile(whole_step, reps=TRAIN_PROFILE_STEPS)
+    print(f"   profiled bf16 train step B={BATCH}: {wall:.3f} ms wall, {s_ms:.3f} ms device kernels, device idle "
+          f"{100 * (1 - s_ms / wall):.1f}% (against the unprofiled {ms_step:.3f} ms/step: "
+          f"{100 * (1 - s_ms / ms_step):.1f}%)")
+    print(f"     device time per step: forward {f_ms:.3f} ms, backward {fb_ms - f_ms:.3f} ms, "
+          f"optimizer (clip, Adam, zeroing) {s_ms - fb_ms:.3f} ms")
+    print(f"     device time per step by layer: {breakdown(kern)}")
+    print(f"     host self time per step (profiled): all ops {sum(host.values()):.3f} ms; top: {top_host_ops(host, 1)}")
+    return TRAIN_TIMED_STEPS, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs only on a GPU", file=sys.stderr)
@@ -381,18 +605,23 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = phase_environment()
     gen = torch.Generator(dev).manual_seed(0)
-    kernels = [phase_groupnorm(dev, gen), phase_attention(dev, gen)]
-    forwards, counts = phase_slice(dev, smi)
+    kernels = [phase_groupnorm(dev, gen), phase_groupnorm_backward(dev, gen), phase_attention(dev, gen)]
+    forwards, sampling = phase_slice(dev, smi)
+    steps, training = phase_train(dev, smi)
 
-    print(f"launch counts over the main path ({forwards} UNet forwards on the card): "
-          + ", ".join(f"{k}={v}" for k, v in counts.items()))
-    check(forwards > 0, "no UNet forward ran on the card")
-    check(counts["groupnorm_silu"] == GN_PER_FORWARD * forwards > 0,
-          f"groupnorm_silu launched {counts['groupnorm_silu']} times, want {GN_PER_FORWARD} x {forwards}")
-    check(counts["attention"] == ATTN_PER_FORWARD * forwards > 0,
-          f"attention launched {counts['attention']} times, want {ATTN_PER_FORWARD} x {forwards}")
+    for path, n, counts, want in (
+        ("sampling", f"{forwards} UNet forwards", sampling,
+         {"groupnorm_silu": GN_PER_FORWARD * forwards, "groupnorm_silu_backward": 0,
+          "attention": ATTN_PER_FORWARD * forwards}),
+        ("training", f"{steps} train steps", training,
+         {"groupnorm_silu": GN_PER_FORWARD * steps, "groupnorm_silu_backward": GN_PER_FORWARD * steps,
+          "attention": ATTN_PER_FORWARD * steps}),
+    ):
+        print(f"launch counts over the {path} path ({n} on the card): "
+              + ", ".join(f"{k}={v}" for k, v in counts.items()))
+        check(counts == want and counts["groupnorm_silu"] > 0, f"{path} launches {counts}, want {want}")
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = sampling[k["name"]] + training[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))

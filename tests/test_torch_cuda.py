@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, beyond the main path's shapes: every
 pack width and lane layout, misaligned and partial-tile inputs, the wrappers'
-refusals, and a small UNet on the card against the CPU's plain path.
+refusals, the GroupNorm+SiLU backward (K2) and its bitwise-repeatable dγ/dβ,
+and a small UNet on the card against the CPU's plain path, forward and one
+train step.
 
 These tests need an NVIDIA GPU and skip without one. Run them on the card
 without the JAX-side conftest (this file imports no JAX):
@@ -29,16 +31,19 @@ def dev():
 
 
 def _gn_args(shape, dtype, dev, seed=0):
+    """x in ``dtype``; γ/β f32 whatever x's dtype, as the kernels take them."""
     g = torch.Generator(dev).manual_seed(seed)
     c = shape[-1]
     x = torch.randn(shape, generator=g, device=dev).to(dtype)
-    w = (torch.rand(c, generator=g, device=dev) + 0.5).to(dtype)
-    b = (0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    w = torch.rand(c, generator=g, device=dev) + 0.5
+    b = 0.1 * torch.randn(c, generator=g, device=dev)
     return x, w, b
 
 
-# (shape, groups): group widths 1, 2, 3, 8, 32 (every pack width), G = 1
-GN_CASES = [((2, 5, 7, 32), 32), ((3, 5, 7, 64), 32), ((2, 3, 3, 96), 32), ((2, 4, 4, 64), 8), ((2, 8, 8, 32), 1)]
+# (shape, groups): group widths 1, 2, 3, 8, 32 (every pack width), G = 1, and
+# the widest group K2 takes (256)
+GN_CASES = [((2, 5, 7, 32), 32), ((3, 5, 7, 64), 32), ((2, 3, 3, 96), 32), ((2, 4, 4, 64), 8), ((2, 8, 8, 32), 1),
+            ((2, 3, 3, 512), 2)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -71,8 +76,10 @@ def test_groupnorm_silu_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ops.groupnorm_silu(x, w.to(torch.bfloat16), b, 32)
     with pytest.raises(ValueError, match="not divisible"):
         ops.groupnorm_silu(x, w, b, 24)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        ops.groupnorm_silu(x.requires_grad_(), w, b, 32)
+    # differentiable: a tensor that needs a gradient runs K1, then K2 backward
+    x.requires_grad_()
+    ops.groupnorm_silu(x, w, b, 32).sum().backward()
+    assert x.grad is not None and x.grad.shape == x.shape and torch.isfinite(x.grad).all()
 
 
 def test_launch_counters_count_kernel_launches_only(dev):
@@ -84,7 +91,75 @@ def test_launch_counters_count_kernel_launches_only(dev):
     ops.attention(q, q, q, 0.5)
     ops.attention_plain(q, q, q, 0.5)
     ops.groupnorm_silu(x.cpu(), w.cpu(), b.cpu(), 32)
-    assert ops.launch_counts() == {"groupnorm_silu": 1, "attention": 1}
+    _, mean, rstd = ops.groupnorm_silu_forward(x, w, b, 32)
+    ops.groupnorm_silu_backward(x, w, b, mean, rstd, x, 32)
+    ops.groupnorm_silu_backward_plain(x, w, b, mean, rstd, x, 32)
+    assert ops.launch_counts() == {"groupnorm_silu": 2, "groupnorm_silu_backward": 1, "attention": 1}
+
+
+def _k2_check(x, w, b, groups, dtype, cotangent_seed=1):
+    """K1's statistics against the plain ones, K2 against its twin on them
+    (dx: TOL; dγ/dβ: f32 sums in another order, atol 1e-4·max|ref|), and a
+    second K2 call giving the same dγ/dβ bits."""
+    out, mean, rstd = ops.groupnorm_silu_forward(x, w, b, groups, 1e-6)
+    mean_p, rstd_p = ops.groupnorm_stats_plain(x, groups, 1e-6)
+    torch.testing.assert_close(mean, mean_p, atol=1e-6, rtol=0.0)
+    torch.testing.assert_close(rstd, rstd_p, atol=0.0, rtol=1e-5)
+    torch.testing.assert_close(out.float(), ops.groupnorm_silu_plain(x, w, b, groups, 1e-6).float(), **TOL[dtype])
+    g = torch.Generator(x.device).manual_seed(cotangent_seed)
+    ct = torch.randn(x.shape, generator=g, device=x.device).to(dtype)
+    dx, dg, db = ops.groupnorm_silu_backward(x, w, b, mean, rstd, ct, groups)
+    dx_p, dg_p, db_p = ops.groupnorm_silu_backward_plain(x, w, b, mean, rstd, ct, groups)
+    assert dx.dtype == dtype and dg.dtype == db.dtype == torch.float32
+    torch.testing.assert_close(dx.float(), dx_p.float(), **TOL[dtype])
+    for got, want in ((dg, dg_p), (db, db_p)):
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0.0)
+    _, dg2, db2 = ops.groupnorm_silu_backward(x, w, b, mean, rstd, ct, groups)
+    assert torch.equal(dg, dg2) and torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,groups", GN_CASES)
+def test_groupnorm_silu_backward_kernel_matches_plain(dev, shape, groups, dtype):
+    _k2_check(*_gn_args(shape, dtype, dev), groups, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_groupnorm_silu_backward_kernel_takes_misaligned_storage(dev, dtype):
+    x, w, b = _gn_args((2, 4, 4, 256), dtype, dev)
+    shifted = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    _k2_check(shifted, w, b, 32, dtype)
+
+
+def test_groupnorm_silu_backward_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, w, b = _gn_args((2, 2, 2, 512), torch.float32, dev)
+    _, mean, rstd = ops.groupnorm_silu_forward(x, w, b, 1)
+    with pytest.raises(ValueError, match="C/G <= 256"):
+        ops.groupnorm_silu_backward(x, w, b, mean, rstd, x, 1)
+    _, mean, rstd = ops.groupnorm_silu_forward(x, w, b, 32)
+    with pytest.raises(ValueError, match="mean"):
+        ops.groupnorm_silu_backward(x, w, b, mean[:, :8].contiguous(), rstd, x, 32)
+    with pytest.raises(ValueError, match="grad_out"):
+        ops.groupnorm_silu_backward(x, w, b, mean, rstd, x.to(torch.bfloat16), 32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_groupnorm_silu_gradient_equals_autograd_through_plain(dev, dtype):
+    """The autograd Function (K1 with statistics, K2) against autograd
+    through ``groupnorm_silu_plain`` on the card; dγ/dβ as in ``_k2_check``."""
+    x, w, b = _gn_args((4, 8, 8, 128), dtype, dev)
+    ct = torch.randn(x.shape, generator=torch.Generator(dev).manual_seed(2), device=dev).to(dtype)
+    grads = []
+    for fn in (ops.groupnorm_silu, ops.groupnorm_silu_plain):
+        args = [a.detach().clone().requires_grad_() for a in (x, w, b)]
+        grads.append(torch.autograd.grad(fn(*args, 32, 1e-5), args, ct))
+    (dx, dg, db), (dx_p, dg_p, db_p) = grads
+    torch.testing.assert_close(dx.float(), dx_p.float(), **(TOL[dtype] if dtype == torch.float32 else
+                                                           dict(atol=2e-2, rtol=1e-2)))
+    for got, want in ((dg, dg_p), (db, db_p)):
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=1e-4)
 
 
 # [B, H, T, D]: 8- and 16-lane rows, masked lanes (D 24, 40), the largest D
@@ -112,22 +187,66 @@ def test_attention_wrapper_refuses_outside_the_envelope(dev):
         ops.attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q, 1.0)
 
 
+SMALL = UNet2DConfig(
+    sample_size=16, layers_per_block=1, block_out_channels=(32, 64), norm_num_groups=8, attention_head_dim=8,
+    down_block_types=("DownBlock2D", "AttnDownBlock2D"), up_block_types=("AttnUpBlock2D", "UpBlock2D"),
+)
+# 2 fused norms per resnet: 2 down, 2 mid, 4 up; plus conv_norm_out
+SMALL_GN, SMALL_ATTN = 2 * (2 + 2 + 4) + 1, 4
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_small_unet_on_the_card_matches_the_cpu(dev, dtype):
-    cfg = UNet2DConfig(
-        sample_size=16, layers_per_block=1, block_out_channels=(32, 64), norm_num_groups=8, attention_head_dim=8,
-        down_block_types=("DownBlock2D", "AttnDownBlock2D"), up_block_types=("AttnUpBlock2D", "UpBlock2D"),
-    )
-    cpu = UNet2DModel(cfg, device="cpu")
-    card = UNet2DModel(cfg).to(dtype)
+    """The same f32 parameters computing in ``dtype`` on the card and on the
+    CPU (the compute dtype as flax's: GroupNorm affines stay f32)."""
+    cpu = UNet2DModel(SMALL, device="cpu", dtype=dtype)
+    card = UNet2DModel(SMALL, dtype=dtype)
     card.load_state_dict(cpu.state_dict())
     x = torch.randn(2, 16, 16, 3, generator=torch.Generator().manual_seed(1))
     t = torch.tensor([5, 600])
     ops.reset_launch_counts()
     with torch.no_grad():
         got = card(x.to(dev), t.to(dev)).cpu()
-        want = cpu.to(dtype)(x, t)
-    # 2 fused norms per resnet: 2 down, 2 mid, 4 up; plus conv_norm_out
-    assert ops.launch_counts() == {"groupnorm_silu": 2 * (2 + 2 + 4) + 1, "attention": 4}
+        want = cpu(x, t)
+    assert ops.launch_counts() == {"groupnorm_silu": SMALL_GN, "groupnorm_silu_backward": 0, "attention": SMALL_ATTN}
     tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=0.1, rtol=0.05)
     torch.testing.assert_close(got, want, **tol)
+
+
+def test_small_unet_train_step_on_the_card_matches_the_cpu(dev):
+    """One f32 train step (no warmup) of the small UNet on the card and on
+    the CPU with the same weights, batch and draws. Gradients before the
+    optimizer: rtol 1e-4, atol 1e-5 of the largest (f32 sums in other
+    orders). Loss and pre-clip grad norm: rtol 1e-4. Every kernel launched
+    once per use: SMALL_GN K1 and K2, SMALL_ATTN K3."""
+    from baddiffusion_tpu_torch.data import Backdoor, trigger_mask
+    from baddiffusion_tpu_torch.schedulers import DDPMConfig, DDPMScheduler
+    from baddiffusion_tpu_torch.training import create_train_state, make_optimizer, make_train_step
+
+    bd = Backdoor()
+    trigger = bd.get_trigger("BOX_8", 3, 16)
+    target = bd.get_target("CORNER", trigger)
+    sched = DDPMScheduler(DDPMConfig()).create_state().schedule
+    g = torch.Generator().manual_seed(3)
+    image = torch.randint(0, 256, (4, 16, 16, 3), generator=g, dtype=torch.uint8)
+    is_clean = torch.tensor([True, False, True, False])
+    t = torch.randint(0, 1000, (4,), generator=g)
+    noise = torch.randn(4, 16, 16, 3, generator=g)
+    results = {}
+    for device in ("cpu", "cuda"):
+        model = UNet2DModel(SMALL, device=device, generator=torch.Generator().manual_seed(0))
+        opt, _ = make_optimizer(1e-3, num_warmup_steps=0, num_training_steps=100)
+        state = create_train_state(model, opt, trigger, target, trigger_mask(trigger))
+        step = make_train_step(model, opt, 1000, sched.alphas, sched.alphas_cumprod, device=device)
+        step.loss(state, *(a.to(device) for a in (image, is_clean)), None, t.to(device), noise.to(device)).backward()
+        grads = {k: p.grad.detach().cpu().clone() for k, p in state.params.items()}
+        ops.reset_launch_counts()
+        state, m = step(state, image, is_clean, None, timesteps=t, noise=noise)
+        results[device] = (grads, float(m["loss"]), float(m["grad_norm"]), ops.launch_counts())
+    (g_cpu, l_cpu, n_cpu, c_cpu), (g_card, l_card, n_card, c_card) = results["cpu"], results["cuda"]
+    assert c_cpu == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0}
+    assert c_card == {"groupnorm_silu": SMALL_GN, "groupnorm_silu_backward": SMALL_GN, "attention": SMALL_ATTN}
+    assert l_card == pytest.approx(l_cpu, rel=1e-4) and n_card == pytest.approx(n_cpu, rel=1e-4)
+    gmax = max(v.abs().max().item() for v in g_cpu.values())
+    for k, want in g_cpu.items():
+        torch.testing.assert_close(g_card[k], want, rtol=1e-4, atol=1e-5 * gmax, msg=k)

@@ -90,7 +90,13 @@ def test_cpu_wrappers_route_to_plain_and_launch_nothing():
     assert torch.equal(groupnorm_silu(x, scale, bias, 32), groupnorm_silu_plain(x, scale, bias, 32))
     q = torch.randn(2, 8, 4, 8, generator=torch.Generator().manual_seed(0))
     assert torch.equal(attention(q, q, q, 0.5), attention_plain(q, q, q, 0.5))
-    assert ops.launch_counts() == {"groupnorm_silu": 0, "attention": 0}
+    # the differentiable paths on CPU tensors: plain forward and backward
+    x.requires_grad_()
+    groupnorm_silu(x, scale, bias, 32).sum().backward()
+    q.requires_grad_()
+    attention(q, q, q, 0.5).sum().backward()
+    assert x.grad is not None and q.grad is not None
+    assert ops.launch_counts() == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0}
 
 
 def test_plain_versions_keep_the_input_dtype():

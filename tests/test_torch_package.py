@@ -77,6 +77,11 @@ def test_kernel_wrappers_refuse_other_devices():
     w = torch.empty(32, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ops.groupnorm_silu(x, w, w, 32)
+    stats = torch.empty(1, 32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.groupnorm_silu_forward(x, w, w, 32)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.groupnorm_silu_backward(x, w, w, stats, stats, x, 32)
     q = torch.empty(1, 2, 4, 8, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ops.attention(q, q, q, 0.5)
