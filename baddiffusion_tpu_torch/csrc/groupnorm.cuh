@@ -1,7 +1,7 @@
-// Pieces shared by the GroupNorm+SiLU forward (groupnorm_silu.cu, K1) and
-// backward (groupnorm_silu_bwd.cu, K2): the block size, a block-wide sum and
-// the choice of pack width. Both kernels run one thread block per (batch
-// row, group) of an NHWC tensor.
+// Pieces of the GroupNorm+SiLU forward (groupnorm_silu.cu, K1) and backward
+// (groupnorm_silu_bwd.cu, K2): the shape check both use, and K2's block size,
+// block-wide sum and choice of pack width (K2 runs one thread block per
+// (batch row, group) of an NHWC tensor; K1's launch plan is its own).
 #pragma once
 
 #include "common.cuh"

@@ -8,6 +8,7 @@ from baddiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_silu_backward_plain,
     groupnorm_silu_forward,
     groupnorm_silu_plain,
+    groupnorm_silu_plan,
     groupnorm_stats_plain,
 )
 
@@ -34,6 +35,7 @@ __all__ = [
     "groupnorm_silu_backward_plain",
     "groupnorm_silu_forward",
     "groupnorm_silu_plain",
+    "groupnorm_silu_plan",
     "groupnorm_stats_plain",
     "launch_counts",
     "reset_launch_counts",

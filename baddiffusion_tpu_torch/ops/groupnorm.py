@@ -5,7 +5,9 @@ Port of ``baddiffusion_tpu/ops/groupnorm.py``. K1, ``csrc/groupnorm_silu.cu``,
 replaces the Pallas TPU kernel ``_forward_pallas``/``_fwd_kernel``; K2,
 ``csrc/groupnorm_silu_bwd.cu``, replaces ``_backward_pallas``/``_bwd_kernel``.
 Each source note says what bounds its kernel on the card (bytes) and how its
-design answers that.
+design answers that. K1's launch plan (slab width, pack width, threads,
+shared memory) is chosen on the host by ``groupnorm_silu_plan``, which the
+CPU tests hold to its rules.
 
 Layout is the JAX package's: ``x`` is a contiguous NHWC tensor ``[B, H, W, C]``
 (an NCHW tensor in ``torch.channels_last`` memory, viewed as NHWC). Statistics
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +36,29 @@ from baddiffusion_tpu_torch.ops import _build
 
 # K2's thread block owns at least one channel pack per thread (csrc note)
 MAX_GROUP_WIDTH_BWD = 256
+
+# K1's launch plan (csrc/groupnorm_silu.cu): the H100's limits, and the plan's choices
+SMEM_PER_BLOCK = 232_448  # dynamic shared memory one block may use (227 KB)
+MAX_THREADS = 512  # the kernel's launch bound
+SECTOR_BYTES = 32
+FULL_GRID = 132  # blocks: one per SM
+STAGE_BYTES = 64 * 1024  # a wider slab stages more than this: fewer than three blocks per SM
+SLAB_THREADS = 256
+
+
+class ForwardPlan(NamedTuple):
+    """How K1 runs one call: ``slab_groups`` consecutive groups per block,
+    packs of ``vec`` elements, ``threads`` per block, ``smem_bytes`` of
+    dynamic shared memory, and the variant: ``staged`` (x read once, the
+    slab kept in shared memory) or ``two_walk`` (the slab does not fit: x
+    read twice). ``blocks`` is the grid."""
+
+    slab_groups: int
+    vec: int
+    threads: int
+    smem_bytes: int
+    variant: str
+    blocks: int
 
 
 def _check_groups(c: int, num_groups: int) -> None:
@@ -103,10 +129,63 @@ def groupnorm_silu_backward_plain(x, weight, bias, mean, rstd, grad_out, num_gro
     return dx.reshape(x.shape).to(x.dtype), dgamma, dbeta
 
 
+def _partial_rows(cols: int, threads: int) -> int:
+    """Rows of per-channel partial sums K1 reduces (csrc ``partial_rows``)."""
+    return threads // 32 if cols < 32 and 32 % cols == 0 and threads % 32 == 0 else threads // cols
+
+
+def _smem_bytes(hw: int, slab_c: int, slab_groups: int, elem_bytes: int, cols: int, threads: int, staged: bool) -> int:
+    """K1's dynamic shared memory (csrc ``smem_bytes_needed``): the staged
+    slab, 16-byte aligned, then the f32 partials and group statistics."""
+    staging = -(-hw * slab_c * elem_bytes // 16) * 16 if staged else 0
+    return staging + 4 * (2 * _partial_rows(cols, threads) * slab_c + 2 * slab_groups)
+
+
+def _slab_plan(batch, hw, c, groups, elem_bytes, align, slab_groups, staged):
+    slab_c = slab_groups * (c // groups)
+    vec = max(v for v in (1, 2, 4, 8) if v * elem_bytes <= 16 and slab_c % v == 0 and align % (v * elem_bytes) == 0)
+    cols = slab_c // vec
+    if cols > MAX_THREADS:
+        return None
+    threads = cols * max(1, min(hw, SLAB_THREADS // cols))
+    smem = _smem_bytes(hw, slab_c, slab_groups, elem_bytes, cols, threads, staged)
+    if smem > SMEM_PER_BLOCK:
+        return None
+    return ForwardPlan(slab_groups, vec, threads, smem, "staged" if staged else "two_walk", batch * (groups // slab_groups))
+
+
+def _slab_widths(c: int, groups: int, elem_bytes: int) -> list:
+    """The slab widths K1 may take, in groups, narrowest first: whole groups
+    that make a whole number of 32-byte sectors per pixel, and the whole row."""
+    cg = c // groups
+    return [k for k in range(1, groups + 1) if groups % k == 0 and (k * cg * elem_bytes % SECTOR_BYTES == 0 or k == groups)]
+
+
+@functools.lru_cache(maxsize=1024)
+def groupnorm_silu_plan(batch: int, hw: int, c: int, groups: int, elem_bytes: int, align: int) -> ForwardPlan:
+    """K1's launch plan for x ``[batch, hw, c]`` of ``elem_bytes`` elements
+    whose data (and the output's) is aligned to ``align`` bytes (a power of
+    2, at most 16). The slab is the widest that still gives ``FULL_GRID``
+    blocks and stages at most ``STAGE_BYTES``, else the narrowest (then the
+    wider ones); it is staged in shared memory where it fits, else x is
+    walked twice. Cached: the host pays one lookup per call."""
+    _check_groups(c, groups)
+    widths = _slab_widths(c, groups, elem_bytes)
+    full = [k for k in widths
+            if hw * k * (c // groups) * elem_bytes <= STAGE_BYTES and batch * (groups // k) >= FULL_GRID]
+    order = full[::-1] + [k for k in widths if k not in full]
+    for staged in (True, False):
+        for k in order:
+            plan = _slab_plan(batch, hw, c, groups, elem_bytes, align, k, staged)
+            if plan is not None:
+                return plan
+    raise ValueError(f"groupnorm_silu kernel takes groups of at most {MAX_THREADS} packs; got C/G = {c // groups}")
+
+
 @functools.lru_cache(maxsize=None)
 def _forward_kernel():
     fn = _build.load("groupnorm_silu").bd_groupnorm_silu_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -158,11 +237,14 @@ def _launch_forward(x, weight, bias, num_groups: int, eps: float, save_stats: bo
     stats = [torch.empty(b, num_groups, dtype=torch.float32, device=x.device) for _ in range(2)] if save_stats else [None, None]
     if x.numel() == 0:
         return out, *stats
+    ptrs = x.data_ptr() | out.data_ptr()
+    plan = groupnorm_silu_plan(b, h * w, c, num_groups, x.element_size(), min(16, ptrs & -ptrs))
     with torch.cuda.device(x.device):
         rc = _forward_kernel()(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
             *(s.data_ptr() if s is not None else None for s in stats),
-            b, h * w, c, num_groups, float(eps), _build.DTYPE_CODES[x.dtype],
+            b, h * w, c, num_groups, plan.slab_groups, plan.vec, plan.threads, plan.smem_bytes,
+            int(plan.variant == "staged"), float(eps), _build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:

@@ -10,9 +10,12 @@
    the main paths give them (batch 128), in bf16 and f32, with the device
    time (torch.profiler) of the kernel, the plain version and one PyTorch
    library call, and the least time the card could take (bytes over
-   3.35 TB/s or operations over peak): GroupNorm+SiLU forward (K1) and
-   backward (K2; also against autograd through the plain forward, and its
-   dγ/dβ bitwise equal over two calls), attention (K3).
+   3.35 TB/s or operations over peak): GroupNorm+SiLU forward (K1; its
+   launch plan printed at each timed shape, its [B, G] statistics against
+   the plain ones, output and statistics bitwise equal over two calls, and
+   the same checks at the sampling batch 16 and at a 128 px slab too large
+   to stage) and backward (K2; also against autograd through the plain
+   forward, and its dγ/dβ bitwise equal over two calls), attention (K3).
 3. The sampling path: the full-width scratch UNet (113.7M parameters, 32 px)
    with seeded weights, saved and reloaded through the pipeline's HF layout,
    one f32 forward and a 10-step f32 chain checked against the CPU's plain
@@ -272,9 +275,31 @@ class KernelRecord:
                     bound_by=b_by, library_ms=tot["library_ms"])
 
 
+def check_k1_stats_and_repeatable(label: str, x, weight, bias) -> None:
+    """K1's saved ``[B, G]`` mean/rstd against the plain ones (mean atol
+    1e-6, rstd rtol 1e-5: f32 sums in another order), and its output and
+    statistics the same bits over two calls, with and without statistics."""
+    first = ops.groupnorm_silu_forward(x, weight, bias, GROUPS, EPS)
+    second = ops.groupnorm_silu_forward(x, weight, bias, GROUPS, EPS)
+    mean, rstd = ops.groupnorm_stats_plain(x, GROUPS, EPS)
+    check_close(f"K1 {label} {x.dtype} statistics vs plain", first[1:], (mean, rstd),
+                [dict(atol=1e-6, rtol=0.0), dict(atol=0.0, rtol=1e-5)])
+    check(all(torch.equal(a, b) for a, b in zip(first, second))
+          and torch.equal(ops.groupnorm_silu(x, weight, bias, GROUPS, EPS), first[0]),
+          f"K1 {label} {x.dtype}: output or statistics differ between two calls")
+
+
+def plan_text(x) -> str:
+    b, h, w, c = x.shape
+    p = ops.groupnorm_silu_plan(b, h * w, c, GROUPS, x.element_size(), 16)
+    return (f"{p.variant}, slab {p.slab_groups} groups ({p.slab_groups * c // GROUPS * x.element_size()} B a pixel), "
+            f"packs of {p.vec}, {p.threads} threads, {p.smem_bytes} B shared, {p.blocks} blocks")
+
+
 def phase_groupnorm(dev, gen) -> dict:
     print(f"-- K1 groupnorm_silu vs groupnorm_silu_plain, B={BATCH}, G={GROUPS}, eps={EPS}; "
-          "tolerance f32 atol 1e-5 (sums reordered), bf16 atol 1e-2 rtol 1e-2 in f32 (one bf16 ulp ~0.8%)")
+          "tolerance f32 atol 1e-5 (sums reordered), bf16 atol 1e-2 rtol 1e-2 in f32 (one bf16 ulp ~0.8%); "
+          "[B, G] statistics and bitwise repeatability checked at every shape")
     rec = KernelRecord("groupnorm_silu", "baddiffusion_tpu_torch/csrc/groupnorm_silu.cu",
                        "baddiffusion_tpu/ops/groupnorm.py:135", "F.group_norm+F.silu")
     for (h, w, c), mult in GN_SHAPES.items():
@@ -282,20 +307,40 @@ def phase_groupnorm(dev, gen) -> dict:
             x, weight, bias = gn_inputs(dev, gen, h, w, c, dtype)
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last NCHW view for the library call
             w_lib, b_lib = weight.to(dtype), bias.to(dtype)  # torch's group_norm takes them in x's dtype
+            label = f"({h:2d},{w:2d},{c:4d})"
+            if dtype == torch.bfloat16:
+                print(f"   {label} plan: {plan_text(x)}")
             rec.shape(
-                f"({h:2d},{w:2d},{c:4d})", mult, dtype,
+                label, mult, dtype,
                 lambda: ops.groupnorm_silu(x, weight, bias, GROUPS, EPS),
                 lambda: ops.groupnorm_silu_plain(x, weight, bias, GROUPS, EPS),
                 lambda: F.silu(F.group_norm(x_nchw, GROUPS, w_lib, b_lib, EPS)),
                 n_bytes=2 * x.numel() * x.element_size() + 2 * c * 4,
                 n_ops=GN_FLOPS_PER_ELEMENT * x.numel(),
             )
+            check_k1_stats_and_repeatable(label, x, weight, bias)
+    # the sampling path's batch, and a slab too large to stage (two walks over x): checked, and
+    # the bf16 kernel's device time
+    sampling_ms = 0.0
+    for b, (h, w, c) in [(SAMPLE_BATCH, shape) for shape in GN_SHAPES] + [(2, (128, 128, 128))]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, weight, bias = gn_inputs(dev, gen, h, w, c, dtype, batch=b)
+            label = f"B={b} ({h},{w},{c})"
+            got = ops.groupnorm_silu(x, weight, bias, GROUPS, EPS)
+            want = ops.groupnorm_silu_plain(x, weight, bias, GROUPS, EPS)
+            rec.err = max(rec.err, check_close(f"K1 {label} {dtype} vs plain", (got,), (want,), [TOL[dtype]]))
+            check_k1_stats_and_repeatable(label, x, weight, bias)
+        k_ms = device_ms(lambda: ops.groupnorm_silu(x, weight, bias, GROUPS, EPS))
+        sampling_ms += GN_SHAPES.get((h, w, c), 0) * k_ms if b == SAMPLE_BATCH else 0.0
+        print(f"   {label} f32 and bf16 match the plain version, statistics and repeatability checked; bf16 kernel "
+              f"{k_ms:.4f} ms; plan (bf16): {plan_text(x)}")
+    print(f"   per UNet forward (B={SAMPLE_BATCH}, bf16, {GN_PER_FORWARD} calls): kernel {sampling_ms:.4f} ms")
     return rec.summary(GN_PER_FORWARD)
 
 
-def gn_inputs(dev, gen, h: int, w: int, c: int, dtype) -> tuple:
-    """x ``[BATCH, h, w, c]`` in ``dtype``; γ/β f32, as the kernels take them."""
-    x = torch.randn(BATCH, h, w, c, generator=gen, device=dev).to(dtype)
+def gn_inputs(dev, gen, h: int, w: int, c: int, dtype, batch: int = BATCH) -> tuple:
+    """x ``[batch, h, w, c]`` in ``dtype``; γ/β f32, as the kernels take them."""
+    x = torch.randn(batch, h, w, c, generator=gen, device=dev).to(dtype)
     weight = torch.rand(c, generator=gen, device=dev) + 0.5
     bias = 0.1 * torch.randn(c, generator=gen, device=dev)
     return x, weight, bias
@@ -595,6 +640,8 @@ def phase_train(dev, smi: str) -> tuple:
           f"optimizer (clip, Adam, zeroing) {s_ms - fb_ms:.3f} ms")
     print(f"     device time per step by layer: {breakdown(kern)}")
     print(f"     host self time per step (profiled): all ops {sum(host.values()):.3f} ms; top: {top_host_ops(host, 1)}")
+    print("     host self time per step of the GroupNorm+SiLU autograd Functions (K1 forward, K2 backward): "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in host.items() if "GroupNormSiLU" in name))
     return TRAIN_TIMED_STEPS, counts
 
 

@@ -41,9 +41,17 @@ def _gn_args(shape, dtype, dev, seed=0):
 
 
 # (shape, groups): group widths 1, 2, 3, 8, 32 (every pack width), G = 1, and
-# the widest group K2 takes (256)
+# the widest group K2 takes (256); then K1's launch plans: the staged slab at
+# the sampling and training batches, the two-walk slab too large to stage,
+# H·W <= 16 with C = 1024, and group width 12
 GN_CASES = [((2, 5, 7, 32), 32), ((3, 5, 7, 64), 32), ((2, 3, 3, 96), 32), ((2, 4, 4, 64), 8), ((2, 8, 8, 32), 1),
-            ((2, 3, 3, 512), 2)]
+            ((2, 3, 3, 512), 2), ((16, 32, 32, 128), 32), ((128, 32, 32, 128), 32), ((1, 128, 128, 128), 32),
+            ((16, 4, 4, 1024), 32), ((2, 16, 16, 384), 32)]
+# (shape, groups, the plan's variant, whether its slab is the whole row)
+K1_PLAN_CASES = [((16, 32, 32, 128), 32, "staged", False), ((128, 16, 16, 256), 32, "staged", False),
+                 ((1, 128, 128, 128), 32, "two_walk", False), ((16, 4, 4, 1024), 32, "staged", False),
+                 ((192, 2, 2, 1024), 32, "staged", True), ((2, 4, 4, 24), 8, "staged", True),
+                 ((2, 5, 7, 32), 32, "staged", False), ((2, 16, 16, 384), 32, "staged", False)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -64,6 +72,45 @@ def test_groupnorm_silu_kernel_takes_misaligned_storage(dev, dtype):
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     torch.testing.assert_close(ops.groupnorm_silu(shifted, w, b, 32).float(),
                                ops.groupnorm_silu_plain(x, w, b, 32).float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,groups,variant,whole_row", K1_PLAN_CASES)
+def test_groupnorm_silu_kernel_is_bitwise_repeatable(dev, shape, groups, variant, whole_row, dtype):
+    """Each launch plan: K1 against its plain twin, and its output and saved
+    ``[B, G]`` mean/rstd the same bits on two calls (a fixed reduction
+    order); the output without statistics is the same as with them."""
+    x, w, b = _gn_args(shape, dtype, dev)
+    plan = ops.groupnorm_silu_plan(shape[0], shape[1] * shape[2], shape[3], groups, x.element_size(), 16)
+    assert (plan.variant, plan.slab_groups == groups) == (variant, whole_row)
+    first = ops.groupnorm_silu_forward(x, w, b, groups)
+    torch.testing.assert_close(first[0].float(), ops.groupnorm_silu_plain(x, w, b, groups).float(), **TOL[dtype])
+    second = ops.groupnorm_silu_forward(x, w, b, groups)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    assert torch.equal(ops.groupnorm_silu(x, w, b, groups), first[0])
+
+
+def test_groupnorm_silu_kernel_refuses_a_plan_that_does_not_fit(dev):
+    """The C entry point checks the launch plan it is given against the
+    shape and the pointers, and returns an error instead of launching."""
+    from baddiffusion_tpu_torch.ops import groupnorm as gn
+
+    x, w, b = _gn_args((2, 8, 8, 128), torch.bfloat16, dev)
+    out = torch.empty_like(x)
+    plan = gn.groupnorm_silu_plan(2, 64, 128, 32, 2, 16)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(**change):
+        p = plan._replace(**change)
+        return gn._forward_kernel()(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), None, None, 2, 64, 128,
+                                    32, p.slab_groups, p.vec, p.threads, p.smem_bytes, 1, 1e-5, 1, stream)
+
+    assert call() == 0
+    for change in (dict(smem_bytes=plan.smem_bytes - 16), dict(slab_groups=3), dict(vec=16),
+                   dict(threads=plan.threads + 1), dict(smem_bytes=300_000)):
+        assert call(**change) != 0, change
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ops.groupnorm_silu_plain(x, w, b, 32).float(), **TOL[torch.bfloat16])
 
 
 def test_groupnorm_silu_wrapper_refuses_what_the_kernel_does_not_take(dev):

@@ -110,6 +110,61 @@ def test_plain_versions_keep_the_input_dtype():
     assert attention_plain(q, q, q, 0.5).dtype == torch.bfloat16
 
 
+# (H, W, C) -> calls per forward of the full-width 32 px scratch UNet
+# (block channels 128/128/256/256/512/512, G = 32): its 65 GroupNorm+SiLU calls
+MAIN_PATH_GN = {
+    (32, 32, 128): 8, (32, 32, 256): 3, (16, 16, 128): 7, (16, 16, 256): 2, (16, 16, 384): 1,
+    (8, 8, 128): 1, (8, 8, 256): 6, (8, 8, 384): 1, (8, 8, 512): 2, (4, 4, 256): 7, (4, 4, 512): 2,
+    (4, 4, 768): 1, (2, 2, 256): 1, (2, 2, 512): 6, (2, 2, 768): 1, (2, 2, 1024): 2, (1, 1, 512): 11,
+    (1, 1, 1024): 3,
+}
+# (B, H, W, C, G, element bytes, alignment): the main path at the sampling
+# (16) and training (128) batches in bf16 and f32, then the envelope: slabs
+# too large to stage (128 px, 256 px), one that stages only at its
+# narrowest (64 px), group widths 1, 3 and 12, G = 1, misaligned storage,
+# H·W <= 16 with C = 1024 at a batch large enough for whole rows, a channel
+# count with no sector-multiple slab but the row
+PLAN_CASES = [(b, h, w, c, 32, eb, 16) for (h, w, c) in MAIN_PATH_GN for b in (16, 128) for eb in (2, 4)] + [
+    (1, 128, 128, 128, 32, 2, 16), (1, 128, 128, 128, 32, 4, 16), (2, 256, 256, 128, 32, 2, 16),
+    (1, 64, 64, 128, 32, 2, 16), (2, 5, 7, 32, 32, 2, 16), (2, 3, 3, 96, 32, 2, 16), (2, 16, 16, 384, 32, 4, 16),
+    (2, 8, 8, 32, 1, 4, 16), (2, 4, 4, 256, 32, 2, 2), (2, 4, 4, 256, 32, 4, 4), (192, 2, 2, 1024, 32, 2, 16),
+    (2, 4, 4, 24, 8, 2, 16),
+]
+
+
+@pytest.mark.parametrize("b,h,w,c,groups,elem_bytes,align", PLAN_CASES)
+def test_groupnorm_silu_launch_plan(b, h, w, c, groups, elem_bytes, align):
+    """K1's launch plan (computed on the CPU; the kernel checks it again):
+    whole groups, a whole number of 32-byte sectors per pixel or the whole
+    row, a pack that divides the slab and the pointers' alignment, shared
+    memory within the H100's 227 KB, x walked twice only where no slab can
+    be staged, and a block per SM wherever 32-byte slabs allow it."""
+    hw, cg = h * w, c // groups
+    plan = ops.groupnorm_silu_plan(b, hw, c, groups, elem_bytes, align)
+    slab_c = plan.slab_groups * cg
+    assert groups % plan.slab_groups == 0 and plan.blocks == b * groups // plan.slab_groups
+    assert (slab_c * elem_bytes) % 32 == 0 or plan.slab_groups == groups
+    assert slab_c % plan.vec == 0 and align % (plan.vec * elem_bytes) == 0 and plan.vec * elem_bytes <= 16
+    cols = slab_c // plan.vec
+    assert plan.threads % cols == 0 and plan.threads <= 512
+    assert plan.smem_bytes <= 227 * 1024
+    # the narrowest slab the rules allow, and the least shared memory its staging takes
+    narrowest = min(k for k in range(1, groups + 1)
+                    if groups % k == 0 and ((k * cg * elem_bytes) % 32 == 0 or k == groups))
+    if plan.variant == "staged":
+        assert plan.smem_bytes >= hw * slab_c * elem_bytes
+    else:
+        assert plan.variant == "two_walk"
+        assert hw * narrowest * cg * elem_bytes + 8 * narrowest * cg > 227 * 1024
+    if b * groups // narrowest >= 132:
+        assert plan.blocks >= 132
+
+
+def test_groupnorm_silu_launch_plan_refuses_too_wide_a_group():
+    with pytest.raises(ValueError, match="at most 512 packs"):
+        ops.groupnorm_silu_plan(1, 1, 8192, 1, 2, 2)
+
+
 def test_groupnorm_rejects_indivisible_channels():
     with pytest.raises(ValueError, match="not divisible"):
         groupnorm_silu(torch.zeros(1, 2, 2, 48), torch.ones(48), torch.zeros(48), 32)
