@@ -6,6 +6,7 @@ from baddiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_silu,
     groupnorm_silu_backward,
     groupnorm_silu_backward_plain,
+    groupnorm_silu_backward_plan,
     groupnorm_silu_forward,
     groupnorm_silu_plain,
     groupnorm_silu_plan,
@@ -33,6 +34,7 @@ __all__ = [
     "groupnorm_silu",
     "groupnorm_silu_backward",
     "groupnorm_silu_backward_plain",
+    "groupnorm_silu_backward_plan",
     "groupnorm_silu_forward",
     "groupnorm_silu_plain",
     "groupnorm_silu_plan",

@@ -5,9 +5,10 @@ Port of ``baddiffusion_tpu/ops/groupnorm.py``. K1, ``csrc/groupnorm_silu.cu``,
 replaces the Pallas TPU kernel ``_forward_pallas``/``_fwd_kernel``; K2,
 ``csrc/groupnorm_silu_bwd.cu``, replaces ``_backward_pallas``/``_bwd_kernel``.
 Each source note says what bounds its kernel on the card (bytes) and how its
-design answers that. K1's launch plan (slab width, pack width, threads,
-shared memory) is chosen on the host by ``groupnorm_silu_plan``, which the
-CPU tests hold to its rules.
+design answers that. Each kernel's launch plan (slab width, pack width,
+threads, shared memory, staging) is chosen on the host by one rule,
+``groupnorm_silu_plan`` for K1 and ``groupnorm_silu_backward_plan`` for K2,
+which the CPU tests hold to its rules.
 
 Layout is the JAX package's: ``x`` is a contiguous NHWC tensor ``[B, H, W, C]``
 (an NCHW tensor in ``torch.channels_last`` memory, viewed as NHWC). Statistics
@@ -34,24 +35,24 @@ import torch.nn.functional as F
 
 from baddiffusion_tpu_torch.ops import _build
 
-# K2's thread block owns at least one channel pack per thread (csrc note)
-MAX_GROUP_WIDTH_BWD = 256
-
-# K1's launch plan (csrc/groupnorm_silu.cu): the H100's limits, and the plan's choices
+# K1's and K2's launch plans (csrc/groupnorm_silu.cu, csrc/groupnorm_silu_bwd.cu):
+# the H100's limits, and the plans' choices
 SMEM_PER_BLOCK = 232_448  # dynamic shared memory one block may use (227 KB)
-MAX_THREADS = 512  # the kernel's launch bound
+MAX_THREADS = 512  # both kernels' launch bound
 SECTOR_BYTES = 32
 FULL_GRID = 132  # blocks: one per SM
 STAGE_BYTES = 64 * 1024  # a wider slab stages more than this: fewer than three blocks per SM
 SLAB_THREADS = 256
+PACK_BYTES = 16  # the widest pack: one 16-byte load a thread
+BWD_PACK = 4  # K2's pack, in elements, unless a slab needs wider: six f32 registers a channel
 
 
-class ForwardPlan(NamedTuple):
-    """How K1 runs one call: ``slab_groups`` consecutive groups per block,
-    packs of ``vec`` elements, ``threads`` per block, ``smem_bytes`` of
-    dynamic shared memory, and the variant: ``staged`` (x read once, the
-    slab kept in shared memory) or ``two_walk`` (the slab does not fit: x
-    read twice). ``blocks`` is the grid."""
+class SlabPlan(NamedTuple):
+    """How K1 or K2 runs one call: ``slab_groups`` consecutive groups per
+    block, packs of ``vec`` elements, ``threads`` per block, ``smem_bytes``
+    of dynamic shared memory, and the variant: ``staged`` (the activations
+    read once, the slab kept in shared memory) or ``two_walk`` (the slab does
+    not fit: read twice). ``blocks`` is the grid."""
 
     slab_groups: int
     vec: int
@@ -130,56 +131,79 @@ def groupnorm_silu_backward_plain(x, weight, bias, mean, rstd, grad_out, num_gro
 
 
 def _partial_rows(cols: int, threads: int) -> int:
-    """Rows of per-channel partial sums K1 reduces (csrc ``partial_rows``)."""
+    """Rows of per-channel partial sums a block reduces (csrc ``partial_rows``)."""
     return threads // 32 if cols < 32 and 32 % cols == 0 and threads % 32 == 0 else threads // cols
 
 
-def _smem_bytes(hw: int, slab_c: int, slab_groups: int, elem_bytes: int, cols: int, threads: int, staged: bool) -> int:
-    """K1's dynamic shared memory (csrc ``smem_bytes_needed``): the staged
-    slab, 16-byte aligned, then the f32 partials and group statistics."""
-    staging = -(-hw * slab_c * elem_bytes // 16) * 16 if staged else 0
+def _smem_bytes(hw: int, slab_c: int, slab_groups: int, staged_bytes: tuple, cols: int, threads: int) -> int:
+    """A launch's dynamic shared memory (csrc ``smem_bytes_needed``): each
+    staged tensor of the slab (its bytes per element in ``staged_bytes``,
+    none for two walks), 16-byte aligned, then the f32 partials and the two
+    per-group values."""
+    staging = sum(-(-hw * slab_c * eb // 16) * 16 for eb in staged_bytes)
     return staging + 4 * (2 * _partial_rows(cols, threads) * slab_c + 2 * slab_groups)
 
 
-def _slab_plan(batch, hw, c, groups, elem_bytes, align, slab_groups, staged):
+def _slab_plan(batch, hw, c, groups, elem_bytes, align, slab_groups, staged_bytes, variant, max_vec):
     slab_c = slab_groups * (c // groups)
-    vec = max(v for v in (1, 2, 4, 8) if v * elem_bytes <= 16 and slab_c % v == 0 and align % (v * elem_bytes) == 0)
+    packs = [v for v in (1, 2, 4, 8)
+             if v * elem_bytes <= PACK_BYTES and slab_c % v == 0 and align % (v * elem_bytes) == 0]
+    vec = max(v for v in packs if v <= max_vec)
+    if slab_c // vec > MAX_THREADS:  # more columns than a block has threads: the widest pack
+        vec = max(packs)
     cols = slab_c // vec
     if cols > MAX_THREADS:
         return None
     threads = cols * max(1, min(hw, SLAB_THREADS // cols))
-    smem = _smem_bytes(hw, slab_c, slab_groups, elem_bytes, cols, threads, staged)
+    smem = _smem_bytes(hw, slab_c, slab_groups, staged_bytes, cols, threads)
     if smem > SMEM_PER_BLOCK:
         return None
-    return ForwardPlan(slab_groups, vec, threads, smem, "staged" if staged else "two_walk", batch * (groups // slab_groups))
+    return SlabPlan(slab_groups, vec, threads, smem, variant, batch * (groups // slab_groups))
 
 
 def _slab_widths(c: int, groups: int, elem_bytes: int) -> list:
-    """The slab widths K1 may take, in groups, narrowest first: whole groups
+    """The slab widths a plan may take, in groups, narrowest first: whole groups
     that make a whole number of 32-byte sectors per pixel, and the whole row."""
     cg = c // groups
     return [k for k in range(1, groups + 1) if groups % k == 0 and (k * cg * elem_bytes % SECTOR_BYTES == 0 or k == groups)]
 
 
-@functools.lru_cache(maxsize=1024)
-def groupnorm_silu_plan(batch: int, hw: int, c: int, groups: int, elem_bytes: int, align: int) -> ForwardPlan:
-    """K1's launch plan for x ``[batch, hw, c]`` of ``elem_bytes`` elements
-    whose data (and the output's) is aligned to ``align`` bytes (a power of
-    2, at most 16). The slab is the widest that still gives ``FULL_GRID``
-    blocks and stages at most ``STAGE_BYTES``, else the narrowest (then the
-    wider ones); it is staged in shared memory where it fits, else x is
-    walked twice. Cached: the host pays one lookup per call."""
+def _plan(batch, hw, c, groups, elem_bytes, align, staged_bytes: tuple, max_vec: int) -> SlabPlan:
+    """The rule both kernels' plans follow. The slab is the widest that still
+    gives ``FULL_GRID`` blocks and stages at most ``STAGE_BYTES`` (the sum of
+    ``staged_bytes`` per element), else the narrowest (then the wider ones);
+    it is staged in shared memory where it fits, else walked twice. Packs
+    are the widest that divide the slab and the alignment, up to ``max_vec``
+    elements where that leaves at most ``MAX_THREADS`` pack columns."""
     _check_groups(c, groups)
     widths = _slab_widths(c, groups, elem_bytes)
     full = [k for k in widths
-            if hw * k * (c // groups) * elem_bytes <= STAGE_BYTES and batch * (groups // k) >= FULL_GRID]
+            if hw * k * (c // groups) * sum(staged_bytes) <= STAGE_BYTES and batch * (groups // k) >= FULL_GRID]
     order = full[::-1] + [k for k in widths if k not in full]
-    for staged in (True, False):
+    for staging, variant in ((staged_bytes, "staged"), ((), "two_walk")):
         for k in order:
-            plan = _slab_plan(batch, hw, c, groups, elem_bytes, align, k, staged)
+            plan = _slab_plan(batch, hw, c, groups, elem_bytes, align, k, staging, variant, max_vec)
             if plan is not None:
                 return plan
     raise ValueError(f"groupnorm_silu kernel takes groups of at most {MAX_THREADS} packs; got C/G = {c // groups}")
+
+
+@functools.lru_cache(maxsize=1024)
+def groupnorm_silu_plan(batch: int, hw: int, c: int, groups: int, elem_bytes: int, align: int) -> SlabPlan:
+    """K1's launch plan for x ``[batch, hw, c]`` of ``elem_bytes`` elements
+    whose data (and the output's) is aligned to ``align`` bytes (a power of
+    2, at most 16): ``_plan``, with x staged. Cached: the host pays one
+    lookup per call."""
+    return _plan(batch, hw, c, groups, elem_bytes, align, (elem_bytes,), max_vec=8)
+
+
+@functools.lru_cache(maxsize=1024)
+def groupnorm_silu_backward_plan(batch: int, hw: int, c: int, groups: int, elem_bytes: int, align: int) -> SlabPlan:
+    """K2's launch plan for x and the cotangent ``[batch, hw, c]`` of
+    ``elem_bytes`` elements, aligned (with dx) to ``align`` bytes: ``_plan``,
+    with x and the cotangent staged and packs of at most ``BWD_PACK``
+    elements. Cached, as K1's."""
+    return _plan(batch, hw, c, groups, elem_bytes, align, (elem_bytes, elem_bytes), max_vec=BWD_PACK)
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,7 +217,7 @@ def _forward_kernel():
 @functools.lru_cache(maxsize=None)
 def _backward_kernel():
     fn = _build.load("groupnorm_silu_bwd").bd_groupnorm_silu_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -274,18 +298,19 @@ def groupnorm_silu_backward(x, weight, bias, mean, rstd, grad_out, num_groups: i
     for name, s in (("mean", mean), ("rstd", rstd)):
         if s.shape != (b, num_groups) or s.dtype != torch.float32 or s.device != x.device or not s.is_contiguous():
             raise ValueError(f"groupnorm_silu {name} must be a contiguous [{b}, {num_groups}] float32 tensor on {x.device}")
-    if c // num_groups > MAX_GROUP_WIDTH_BWD:
-        raise ValueError(f"groupnorm_silu backward kernel takes C/G <= {MAX_GROUP_WIDTH_BWD}, got {c // num_groups}")
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     if x.numel() == 0:
         return dx, torch.zeros_like(weight), torch.zeros_like(bias)
-    dgamma_dbeta = torch.empty(2 * c, dtype=torch.float32, device=x.device)
-    partial = torch.empty(b, 2 * c, dtype=torch.float32, device=x.device)
+    ptrs = x.data_ptr() | grad_out.data_ptr() | dx.data_ptr()
+    plan = groupnorm_silu_backward_plan(b, h * w, c, num_groups, x.element_size(), min(16, ptrs & -ptrs))
+    # the [2c] result (dγ then dβ), then the [b, 2c] per-row workspace
+    buf = torch.empty((b + 1) * 2 * c, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _backward_kernel()(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            grad_out.data_ptr(), dx.data_ptr(), partial.data_ptr(), dgamma_dbeta.data_ptr(),
-            b, h * w, c, num_groups, _build.DTYPE_CODES[x.dtype],
+            grad_out.data_ptr(), dx.data_ptr(), buf.data_ptr() + 2 * c * 4, buf.data_ptr(),
+            b, h * w, c, num_groups, plan.slab_groups, plan.vec, plan.threads, plan.smem_bytes,
+            int(plan.variant == "staged"), _build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
@@ -293,7 +318,7 @@ def groupnorm_silu_backward(x, weight, bias, mean, rstd, grad_out, num_groups: i
             f"groupnorm_silu backward kernel launch failed: cudaError {rc} at shape {tuple(x.shape)} {x.dtype}"
         )
     groupnorm_silu_backward.launches += 1
-    return dx, dgamma_dbeta[:c], dgamma_dbeta[c:]
+    return dx, buf[:c], buf[c:2 * c]
 
 
 groupnorm_silu_backward.launches = 0

@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card, beyond the main path's shapes: every
-pack width and lane layout, misaligned and partial-tile inputs, the wrappers'
-refusals, the GroupNorm+SiLU backward (K2) and its bitwise-repeatable dγ/dβ,
-and a small UNet on the card against the CPU's plain path, forward and one
-train step.
+pack width and lane layout, misaligned and partial-tile inputs, each launch
+plan, the wrappers' refusals, the GroupNorm+SiLU backward (K2) and its
+bitwise-repeatable dx, dγ and dβ, and a small UNet on the card against the
+CPU's plain path, forward and one train step.
 
 These tests need an NVIDIA GPU and skip without one. Run them on the card
 without the JAX-side conftest (this file imports no JAX):
@@ -41,7 +41,7 @@ def _gn_args(shape, dtype, dev, seed=0):
 
 
 # (shape, groups): group widths 1, 2, 3, 8, 32 (every pack width), G = 1, and
-# the widest group K2 takes (256); then K1's launch plans: the staged slab at
+# a group of 256 channels; then K1's launch plans: the staged slab at
 # the sampling and training batches, the two-walk slab too large to stage,
 # H·W <= 16 with C = 1024, and group width 12
 GN_CASES = [((2, 5, 7, 32), 32), ((3, 5, 7, 64), 32), ((2, 3, 3, 96), 32), ((2, 4, 4, 64), 8), ((2, 8, 8, 32), 1),
@@ -52,6 +52,12 @@ K1_PLAN_CASES = [((16, 32, 32, 128), 32, "staged", False), ((128, 16, 16, 256), 
                  ((1, 128, 128, 128), 32, "two_walk", False), ((16, 4, 4, 1024), 32, "staged", False),
                  ((192, 2, 2, 1024), 32, "staged", True), ((2, 4, 4, 24), 8, "staged", True),
                  ((2, 5, 7, 32), 32, "staged", False), ((2, 16, 16, 384), 32, "staged", False)]
+# K2's: the staged slab at the training batch, the two-walk slab, the whole
+# row at H·W <= 16, group widths 1, 3 and 12, and one group of 512 channels
+K2_PLAN_CASES = [((128, 32, 32, 128), 32, "staged", False), ((128, 16, 16, 256), 32, "staged", False),
+                 ((1, 128, 128, 128), 32, "two_walk", False), ((192, 2, 2, 1024), 32, "staged", True),
+                 ((2, 5, 7, 32), 32, "staged", False), ((2, 3, 3, 96), 32, "staged", False),
+                 ((2, 16, 16, 384), 32, "staged", False), ((2, 2, 2, 512), 1, "staged", True)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -180,11 +186,67 @@ def test_groupnorm_silu_backward_kernel_takes_misaligned_storage(dev, dtype):
     _k2_check(shifted, w, b, 32, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,groups,variant,whole_row", K2_PLAN_CASES)
+def test_groupnorm_silu_backward_kernel_is_bitwise_repeatable(dev, shape, groups, variant, whole_row, dtype):
+    """Each of K2's launch plans: against its plain twin on K1's statistics
+    (as ``_k2_check``), and dx, dγ, dβ the same bits on two calls (a fixed
+    reduction order)."""
+    x, w, b = _gn_args(shape, dtype, dev)
+    plan = ops.groupnorm_silu_backward_plan(shape[0], shape[1] * shape[2], shape[3], groups, x.element_size(), 16)
+    assert (plan.variant, plan.slab_groups == groups) == (variant, whole_row)
+    _k2_check(x, w, b, groups, dtype)
+    _, mean, rstd = ops.groupnorm_silu_forward(x, w, b, groups)
+    ct = torch.randn(shape, generator=torch.Generator(dev).manual_seed(3), device=dev).to(dtype)
+    first = ops.groupnorm_silu_backward(x, w, b, mean, rstd, ct, groups)
+    second = ops.groupnorm_silu_backward(x, w, b, mean, rstd, ct, groups)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def test_groupnorm_silu_backward_kernel_takes_the_widest_group_the_forward_takes(dev):
+    """One bf16 group of 4096 channels: 512 packs of 8, K2's only plan with
+    8-element packs."""
+    x, w, b = _gn_args((1, 2, 2, 4096), torch.bfloat16, dev)
+    assert ops.groupnorm_silu_backward_plan(1, 4, 4096, 1, 2, 16).vec == 8
+    _k2_check(x, w, b, 1, torch.bfloat16)
+
+
+def test_groupnorm_silu_backward_kernel_refuses_a_plan_that_does_not_fit(dev):
+    """``bd_groupnorm_silu_bwd`` checks the launch plan it is given against
+    the shape and the pointers, and returns an error instead of launching."""
+    from baddiffusion_tpu_torch.ops import groupnorm as gn
+
+    x, w, b = _gn_args((2, 8, 8, 128), torch.bfloat16, dev)
+    _, mean, rstd = ops.groupnorm_silu_forward(x, w, b, 32)
+    ct = torch.randn(x.shape, generator=torch.Generator(dev).manual_seed(1), device=dev).to(torch.bfloat16)
+    dx = torch.empty_like(x)
+    buf = torch.empty(3 * 2 * 128, dtype=torch.float32, device=dev)
+    plan = gn.groupnorm_silu_backward_plan(2, 64, 128, 32, 2, 16)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(stage=1, **change):
+        p = plan._replace(**change)
+        return gn._backward_kernel()(x.data_ptr(), w.data_ptr(), b.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                                     ct.data_ptr(), dx.data_ptr(), buf.data_ptr() + 2 * 128 * 4, buf.data_ptr(),
+                                     2, 64, 128, 32, p.slab_groups, p.vec, p.threads, p.smem_bytes, stage, 1, stream)
+
+    assert call() == 0
+    for change in (dict(smem_bytes=plan.smem_bytes - 16), dict(slab_groups=3), dict(vec=16),
+                   dict(threads=plan.threads + 1), dict(smem_bytes=300_000), dict(stage=0), dict(stage=7)):
+        assert call(**change) != 0, change
+    torch.cuda.synchronize()
+    want = ops.groupnorm_silu_backward_plain(x, w, b, mean, rstd, ct, 32)
+    torch.testing.assert_close(dx.float(), want[0].float(), **TOL[torch.bfloat16])
+    for got, ref in ((buf[:128], want[1]), (buf[128:256], want[2])):
+        torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=0.0)
+
+
 def test_groupnorm_silu_backward_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    wide = torch.zeros(1, 1, 1, 8192, device=dev)  # one group of 2048 packs: wider than a block
+    stat = torch.zeros(1, 1, device=dev)
+    with pytest.raises(ValueError, match="at most 512 packs"):
+        ops.groupnorm_silu_backward(wide, wide[0, 0, 0], wide[0, 0, 0], stat, stat, wide, 1)
     x, w, b = _gn_args((2, 2, 2, 512), torch.float32, dev)
-    _, mean, rstd = ops.groupnorm_silu_forward(x, w, b, 1)
-    with pytest.raises(ValueError, match="C/G <= 256"):
-        ops.groupnorm_silu_backward(x, w, b, mean, rstd, x, 1)
     _, mean, rstd = ops.groupnorm_silu_forward(x, w, b, 32)
     with pytest.raises(ValueError, match="mean"):
         ops.groupnorm_silu_backward(x, w, b, mean[:, :8].contiguous(), rstd, x, 32)

@@ -139,8 +139,21 @@ def test_groupnorm_silu_launch_plan(b, h, w, c, groups, elem_bytes, align):
     row, a pack that divides the slab and the pointers' alignment, shared
     memory within the H100's 227 KB, x walked twice only where no slab can
     be staged, and a block per SM wherever 32-byte slabs allow it."""
-    hw, cg = h * w, c // groups
-    plan = ops.groupnorm_silu_plan(b, hw, c, groups, elem_bytes, align)
+    plan = ops.groupnorm_silu_plan(b, h * w, c, groups, elem_bytes, align)
+    _check_plan(plan, b, h * w, c, groups, elem_bytes, align, staged_tensors=1)
+
+
+@pytest.mark.parametrize("b,h,w,c,groups,elem_bytes,align", PLAN_CASES)
+def test_groupnorm_silu_backward_launch_plan(b, h, w, c, groups, elem_bytes, align):
+    """K2's launch plan, held to K1's rules with two tensors staged (x and
+    the cotangent): a staged plan holds both slabs in shared memory, and
+    they are walked twice only where no slab of both can be staged."""
+    plan = ops.groupnorm_silu_backward_plan(b, h * w, c, groups, elem_bytes, align)
+    _check_plan(plan, b, h * w, c, groups, elem_bytes, align, staged_tensors=2)
+
+
+def _check_plan(plan, b, hw, c, groups, elem_bytes, align, staged_tensors):
+    cg = c // groups
     slab_c = plan.slab_groups * cg
     assert groups % plan.slab_groups == 0 and plan.blocks == b * groups // plan.slab_groups
     assert (slab_c * elem_bytes) % 32 == 0 or plan.slab_groups == groups
@@ -152,10 +165,10 @@ def test_groupnorm_silu_launch_plan(b, h, w, c, groups, elem_bytes, align):
     narrowest = min(k for k in range(1, groups + 1)
                     if groups % k == 0 and ((k * cg * elem_bytes) % 32 == 0 or k == groups))
     if plan.variant == "staged":
-        assert plan.smem_bytes >= hw * slab_c * elem_bytes
+        assert plan.smem_bytes >= staged_tensors * hw * slab_c * elem_bytes
     else:
         assert plan.variant == "two_walk"
-        assert hw * narrowest * cg * elem_bytes + 8 * narrowest * cg > 227 * 1024
+        assert staged_tensors * hw * narrowest * cg * elem_bytes + 8 * narrowest * cg > 227 * 1024
     if b * groups // narrowest >= 132:
         assert plan.blocks >= 132
 
@@ -163,6 +176,14 @@ def test_groupnorm_silu_launch_plan(b, h, w, c, groups, elem_bytes, align):
 def test_groupnorm_silu_launch_plan_refuses_too_wide_a_group():
     with pytest.raises(ValueError, match="at most 512 packs"):
         ops.groupnorm_silu_plan(1, 1, 8192, 1, 2, 2)
+
+
+def test_groupnorm_silu_backward_launch_plan_refuses_what_the_forward_refuses():
+    """K2 takes every group K1 takes (up to 512 packs) and refuses the rest
+    with K1's message."""
+    assert ops.groupnorm_silu_backward_plan(1, 4, 4096, 1, 2, 16).vec == 8
+    with pytest.raises(ValueError, match="at most 512 packs"):
+        ops.groupnorm_silu_backward_plan(1, 1, 8192, 1, 2, 2)
 
 
 def test_groupnorm_rejects_indivisible_channels():
