@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch twin."""
 
-from baddiffusion_tpu_torch.ops.attention import attention, attention_backward_plain, attention_plain
+from baddiffusion_tpu_torch.ops.attention import attention, attention_backward_plain, attention_plain, attention_plan
 from baddiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_plain,
     groupnorm_silu,
@@ -30,6 +30,7 @@ __all__ = [
     "attention",
     "attention_backward_plain",
     "attention_plain",
+    "attention_plan",
     "groupnorm_plain",
     "groupnorm_silu",
     "groupnorm_silu_backward",

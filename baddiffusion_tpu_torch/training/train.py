@@ -11,7 +11,9 @@ Where the JAX step is one pure jitted function, this one updates the state in
 place (the parameters, the Adam moments and the step count) and returns it,
 which spares a second copy of the parameters and moments. The draws of t and
 ε come from an explicit ``torch.Generator``, or are handed in (``timesteps``,
-``noise``) so that a test can give the step JAX's own draws. Not ported yet:
+``noise``) so that a test can give the step JAX's own draws. As in the JAX
+step, the model is deterministic (``model.apply`` with no dropout RNG): a
+config's dropout never fires. Not ported yet:
 the mesh and sharding arguments (the ``parallel/`` slice).
 """
 
@@ -98,8 +100,12 @@ class TrainStep:
 
     def loss(self, state: TrainState, image_u8: torch.Tensor, is_clean: torch.Tensor,
              generator: Optional[torch.Generator], timesteps=None, noise=None) -> torch.Tensor:
-        """The loss of one micro-batch, with its autograd graph (no backward)."""
-        self.model.train()
+        """The loss of one micro-batch, with its autograd graph (no backward).
+        The model runs as the JAX step runs it, deterministic: no dropout,
+        whatever its config's rate. A model left in train mode is put back in
+        eval mode, which is where it samples from too."""
+        if self.model.training:
+            self.model.eval()
         _, R, x_start = poison_batch(image_u8, is_clean, state.trigger, state.target, state.mask, self.vmin, self.vmax)
         b = image_u8.shape[0]
         if (timesteps is None or noise is None) and generator is None:

@@ -18,7 +18,12 @@
    also against autograd through the plain forward, dx, dγ and dβ bitwise
    equal over two calls, the same checks at a 128 px slab too large to
    stage, and the device time of its second kernel, the sum of dγ/dβ over
-   the batch, apart), attention (K3).
+   the batch, apart), attention (K3; its launch plan printed at each shape:
+   the main path's two shapes at batch 128 and 16, the scratch UNet at
+   256 px, google/ddpm-cifar10-32, google/ddpm-ema-celebahq-256's 512-wide
+   head, the envelope's long end and a ragged T; each in f32 and bf16 against
+   the plain version and bitwise equal over two calls; its bound also counts
+   the exponentials, over the special-function rate).
 3. The sampling path: the full-width scratch UNet (113.7M parameters, 32 px)
    with seeded weights, saved and reloaded through the pipeline's HF layout,
    one f32 forward and a 10-step f32 chain checked against the CPU's plain
@@ -72,6 +77,9 @@ TMP_BASE = os.path.join(ROOT, ".chip_smoke_tmp")
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# exponentials per second of the special-function units, H100 SXM5
+# (FlashAttention-3, Shah et al., 2024, section 3.1): the softmax's bound
+PEAK_EXP_PER_S = 3.9e12
 
 BATCH = 128
 GROUPS = 32
@@ -85,8 +93,17 @@ GN_SHAPES = {
 }
 GN_FLOPS_PER_ELEMENT = 10  # sum, sum of squares, normalise, affine, SiLU
 GN_BWD_FLOPS_PER_ELEMENT = 20  # x-hat, affine, SiLU', two group sums, dγ/dβ sums, dx
-# attention [B, H, T, D] -> calls per forward (0: envelope shapes, checked only)
-ATTN_SHAPES = {(BATCH, 64, 4, 8): 5, (BATCH, 64, 1, 8): 1, (16, 1, 256, 256): 0, (4, 8, 1024, 64): 0}
+# attention [B, H, T, D] -> calls per forward of the main path at batch 128 (0:
+# checked and timed, not counted): the 32 px scratch UNet at batch 128 and at
+# the sampling batch 16, the scratch UNet at 256 px (micro-batch 4),
+# google/ddpm-cifar10-32 at batch 16, the envelope's long end,
+# google/ddpm-ema-celebahq-256's one 512-wide head, a ragged T
+ATTN_SHAPES = {
+    (BATCH, 64, 4, 8): 5, (BATCH, 64, 1, 8): 1, (16, 64, 4, 8): 0, (16, 64, 1, 8): 0, (4, 64, 256, 8): 0,
+    (4, 64, 64, 8): 0, (16, 1, 256, 256): 0, (16, 1, 16, 256): 0, (4, 8, 1024, 64): 0, (2, 1, 256, 512): 0,
+    (2, 3, 100, 64): 0,
+}
+ATTN_SAMPLING = {(16, 64, 4, 8): 5, (16, 64, 1, 8): 1}  # a UNet forward at the sampling batch
 GN_PER_FORWARD = sum(GN_SHAPES.values())
 ATTN_PER_FORWARD = sum(ATTN_SHAPES.values())
 TOL = {torch.float32: dict(atol=1e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
@@ -105,7 +122,7 @@ TRAIN_PROFILE_STEPS = 3
 KERNEL_GROUPS = (
     ("groupnorm_silu (K1)", ("groupnorm_silu_fwd_kernel",)),
     ("groupnorm_silu_backward (K2)", ("groupnorm_silu_bwd_kernel", "sum_rows_kernel")),
-    ("attention (K3)", ("attention_fwd_kernel",)),
+    ("attention (K3)", ("attention_packed_kernel", "attention_tiled_kernel", "attention_rowwise_kernel")),
     ("convolution (cuDNN)", ("fprop", "conv", "cutlass", "implicit_gemm", "xmma")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cublas")),
 )
@@ -191,10 +208,14 @@ def breakdown(kernels: dict, per: float = 1.0) -> str:
     return ", ".join(f"{n} {v / per:.4f} ms ({100 * v / total:.1f}%)" for n, v in groups.items())
 
 
-def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(n_bytes: float, n_ops: float, dtype, n_exp: float = 0.0) -> tuple:
+    """The least time the card could take: the largest of the bytes over the
+    memory rate, the operations over the tensor (or f32) rate, and the
+    exponentials over the special-function rate; and which of them it is."""
+    times = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3, "operations": n_ops / PEAK_OPS_PER_S[dtype] * 1e3,
+             "exponentials": n_exp / PEAK_EXP_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -247,10 +268,11 @@ class KernelRecord:
         self.per = per
         self.second = second  # the name of a second kernel each call launches, timed apart too
         self.err = 0.0
-        self.tot = dict(ms=0.0, second_ms=0.0, wall_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
+        self.tot = dict(ms=0.0, second_ms=0.0, wall_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, exps=0.0)
+        self.times = {}  # label -> the bf16 kernel's device ms per call
 
     def shape(self, label: str, mult: int, dtype, kernel, plain, library, n_bytes: float, n_ops: float,
-              tols=None) -> tuple:
+              tols=None, n_exp: float = 0.0) -> tuple:
         """``kernel`` and ``plain`` return a tensor or a tuple of them, each
         held to its entry of ``tols`` (default ``TOL[dtype]``). Returns the
         kernel's outputs as a tuple."""
@@ -264,18 +286,20 @@ class KernelRecord:
         _, k_ms, kern, _ = device_profile(kernel)
         s_ms = sum(ms for key, ms in kern.items() if self.second and self.second in key)
         k_wall, p_ms, l_ms = time_ms(kernel), device_ms(plain), device_ms(library)
-        b_ms, b_by = bound_ms(n_bytes, n_ops, dtype)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, dtype, n_exp)
         second = f" ({self.second} {s_ms:.4f} of it)" if self.second else ""
         print(f"   {label} x{mult:2d}  bf16 kernel {k_ms:.4f} ms{second} (per-call wall {k_wall:.4f})  "
-              f"plain {p_ms:.4f} ms  {self.library} {l_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  max err {e:.3g}")
+              f"plain {p_ms:.4f} ms  {self.library} {l_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by}; kernel/bound "
+              f"{k_ms / b_ms:.2f})  max err {e:.3g}")
+        self.times[label] = k_ms
         for key, val in (("ms", k_ms), ("second_ms", s_ms), ("wall_ms", k_wall), ("plain_ms", p_ms),
-                         ("library_ms", l_ms), ("bytes", n_bytes), ("ops", n_ops)):
+                         ("library_ms", l_ms), ("bytes", n_bytes), ("ops", n_ops), ("exps", n_exp)):
             self.tot[key] += mult * val
         return got
 
     def summary(self, calls: int) -> dict:
         tot = self.tot
-        b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], torch.bfloat16)
+        b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], torch.bfloat16, tot["exps"])
         second = f" ({self.second} {tot['second_ms']:.4f} of it)" if self.second else ""
         print(f"   per {self.per} (B={BATCH}, bf16, {calls} calls): kernel {tot['ms']:.4f} ms{second} "
               f"(per-call wall {tot['wall_ms']:.4f})  plain {tot['plain_ms']:.4f} ms  {self.library} "
@@ -428,22 +452,32 @@ def phase_groupnorm_backward(dev, gen) -> dict:
 
 
 def phase_attention(dev, gen) -> dict:
-    print("-- K3 attention vs attention_plain; tolerance f32 atol 1e-5 (sums reordered), "
-          "bf16 atol 1e-2 rtol 1e-2 in f32")
+    print("-- K3 attention vs attention_plain; tolerance f32 atol 1e-5 (sums reordered), bf16 atol 1e-2 rtol 1e-2 "
+          "in f32 (one bf16 ulp ~0.8%; absorbs the tiled variant's bf16 probabilities); output bitwise equal over two "
+          "calls at every shape; bound: the largest of bytes, 4·T²·D products a head over the tensor rate and T² "
+          "exponentials a head over the special-function rate")
     rec = KernelRecord("attention", "baddiffusion_tpu_torch/csrc/attention.cu",
                        "baddiffusion_tpu/ops/attention.py:42", "sdpa")
     for (b, h, t, d), mult in ATTN_SHAPES.items():
         scale = 1.0 / d**0.5
+        label = f"[{b},{h},{t},{d}]"
         for dtype in (torch.float32, torch.bfloat16):
+            print(f"   {label} {str(dtype)[6:]} plan: {ops.attention_plan(b * h, t, d, dtype)}")
             q, k, v = (torch.randn(b, h, t, d, generator=gen, device=dev).to(dtype) for _ in range(3))
-            rec.shape(
-                f"[{b},{h},{t},{d}]", mult, dtype,
+            (first,) = rec.shape(
+                label, mult, dtype,
                 lambda: ops.attention(q, k, v, scale),
                 lambda: ops.attention_plain(q, k, v, scale),
                 lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                 n_bytes=4 * q.numel() * q.element_size(),
-                n_ops=4 * b * h * t * t * d + 5 * b * h * t * t,  # q.k and p.v products, softmax
+                n_ops=4 * b * h * t * t * d,  # the q·k and p·v products
+                n_exp=b * h * t * t,  # one exponential a score
             )
+            check(torch.equal(first, ops.attention(q, k, v, scale)),
+                  f"K3 {label} {dtype}: output differs between two calls")
+    sampling_ms = sum(mult * rec.times[f"[{b},{h},{t},{d}]"] for (b, h, t, d), mult in ATTN_SAMPLING.items())
+    print(f"   per UNet forward (B={SAMPLE_BATCH}, bf16, {sum(ATTN_SAMPLING.values())} calls): kernel "
+          f"{sampling_ms:.4f} ms")
     return rec.summary(ATTN_PER_FORWARD)
 
 

@@ -272,18 +272,84 @@ def test_groupnorm_silu_gradient_equals_autograd_through_plain(dev, dtype):
 
 
 # [B, H, T, D]: 8- and 16-lane rows, masked lanes (D 24, 40), the largest D
-# with a partial last K/V tile, the longest T
-ATTN_CASES = [(2, 3, 17, 8), (1, 2, 33, 16), (2, 3, 17, 24), (2, 2, 7, 40), (1, 1, 1000, 512), (1, 2, 1024, 8)]
+# with a partial last K/V tile, the longest T (rowwise in f32; in bf16 the
+# first four and the last are tiled); then the packed plan (the UNet's 4- and
+# 1-token calls, T = 16 at D = 32, D = 24) and the tiled plan in bf16 at
+# D = 8, 16, 64, 128 and 256, ragged T, T = 1 and T = 1024
+ATTN_CASES = [(2, 3, 17, 8), (1, 2, 33, 16), (2, 3, 17, 24), (2, 2, 7, 40), (1, 1, 1000, 512), (1, 2, 1024, 8),
+              (2, 64, 4, 8), (2, 64, 1, 8), (3, 5, 16, 32), (1, 2, 7, 24),
+              (2, 4, 256, 8), (2, 3, 40, 16), (2, 3, 100, 64), (1, 2, 64, 128), (2, 1, 256, 256), (1, 1, 16, 256),
+              (1, 2, 1, 256), (1, 2, 1024, 64)]
+
+
+def _qkv(shape, dtype, dev, seed=None):
+    g = torch.Generator(dev).manual_seed(sum(shape) if seed is None else seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("shape", ATTN_CASES)
 def test_attention_kernel_matches_plain(dev, shape, dtype):
-    g = torch.Generator(dev).manual_seed(sum(shape))
-    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3))
+    q, k, v = _qkv(shape, dtype, dev)
     scale = shape[-1] ** -0.5
     got = ops.attention(q, k, v, scale)
     torch.testing.assert_close(got.float(), ops.attention_plain(q, k, v, scale).float(), **TOL[dtype])
+
+
+# (shape, dtype, the plan's variant): each variant in each dtype it takes
+ATTN_PLAN_CASES = [((128, 64, 4, 8), torch.bfloat16, "packed"), ((16, 64, 1, 8), torch.float32, "packed"),
+                   ((4, 64, 256, 8), torch.bfloat16, "tiled"), ((2, 3, 100, 64), torch.bfloat16, "tiled"),
+                   ((16, 1, 256, 256), torch.bfloat16, "tiled"), ((4, 8, 1024, 64), torch.bfloat16, "tiled"),
+                   ((2, 1, 256, 512), torch.bfloat16, "rowwise"), ((2, 3, 100, 64), torch.float32, "rowwise")]
+
+
+@pytest.mark.parametrize("shape,dtype,variant", ATTN_PLAN_CASES)
+def test_attention_kernel_is_bitwise_repeatable(dev, shape, dtype, variant):
+    """Each variant: against the plain twin, and the same bits on two calls
+    (no split over keys, no atomics)."""
+    b, h, t, d = shape
+    assert ops.attention_plan(b * h, t, d, dtype).variant == variant
+    q, k, v = _qkv(shape, dtype, dev)
+    first = ops.attention(q, k, v, d**-0.5)
+    torch.testing.assert_close(first.float(), ops.attention_plain(q, k, v, d**-0.5).float(), **TOL[dtype])
+    assert torch.equal(first, ops.attention(q, k, v, d**-0.5))
+
+
+def test_attention_kernel_refuses_a_plan_that_does_not_fit(dev):
+    """``bd_attention_fwd`` checks the launch plan it is given against the
+    shape, the dtype and the pointers, and returns an error instead of
+    launching."""
+    import importlib
+
+    attn = importlib.import_module("baddiffusion_tpu_torch.ops.attention")  # the module, not ops.attention
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(q, plan, dtype_code=1, ptr_offset=0, **change):
+        p = plan._replace(**change)
+        b, h, t, d = q.shape
+        out = torch.empty_like(q)
+        rc = attn._kernel()(q.data_ptr() + ptr_offset, q.data_ptr(), q.data_ptr(), out.data_ptr(), b * h, t, d,
+                            d**-0.5, dtype_code, attn.VARIANTS.index(p.variant), p.threads, p.rows, p.key_tile,
+                            p.depth, p.smem_bytes, stream)
+        return rc, out
+
+    for shape, dtype in (((2, 3, 100, 64), torch.bfloat16), ((2, 64, 4, 8), torch.bfloat16),
+                         ((2, 1, 40, 512), torch.float32)):
+        q = _qkv(shape, dtype, dev)[0]
+        b, h, t, d = shape
+        plan = ops.attention_plan(b * h, t, d, dtype)
+        code = 0 if dtype == torch.float32 else 1
+        rc, out = call(q, plan, code)
+        assert rc == 0
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ops.attention_plain(q, q, q, d**-0.5).float(), **TOL[dtype])
+        bad = [dict(smem_bytes=plan.smem_bytes + 16), dict(rows=plan.rows + 1), dict(threads=plan.threads + 32),
+               dict(depth=plan.depth + 8), dict(ptr_offset=8),
+               dict(variant="tiled") if plan.variant == "packed" else dict(variant="packed", key_tile=0, smem_bytes=0)]
+        if plan.variant == "tiled":
+            bad += [dict(dtype_code=0), dict(key_tile=plan.key_tile // 2), dict(rows=48, threads=96)]
+        for change in bad:
+            assert call(q, plan, **{"dtype_code": code, **change})[0] != 0, (shape, change)
 
 
 def test_attention_wrapper_refuses_outside_the_envelope(dev):
@@ -294,6 +360,29 @@ def test_attention_wrapper_refuses_outside_the_envelope(dev):
     q = torch.zeros(1, 2, 4, 8, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         ops.attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q, 1.0)
+    shifted = torch.zeros(q.numel() + 1, device=dev)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.attention(shifted, q, q, 1.0)
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 64, 64), (1, 1, 256, 256)])
+def test_attention_gradient_through_the_tiled_forward(dev, shape):
+    """``_Attention`` on bf16 inputs that take the tiled plan: the forward is
+    the kernel (counted once), the backward the plain f32 VJP, against
+    autograd through ``attention_plain`` (both round to bf16 once)."""
+    b, h, t, d = shape
+    assert ops.attention_plan(b * h, t, d, torch.bfloat16).variant == "tiled"
+    q, k, v = _qkv(shape, torch.bfloat16, dev)
+    ct = torch.randn(shape, generator=torch.Generator(dev).manual_seed(5), device=dev).to(torch.bfloat16)
+    grads = []
+    ops.reset_launch_counts()
+    for fn in (ops.attention, ops.attention_plain):
+        args = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*args, d**-0.5), args, ct))
+    assert ops.launch_counts()["attention"] == 1
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1e-2)
 
 
 SMALL = UNet2DConfig(

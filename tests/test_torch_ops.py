@@ -24,7 +24,9 @@ from baddiffusion_tpu_torch.ops import (
 # (B, H, W, C): main-path shapes of the 32 px scratch UNet at batch 2, one
 # H = W = 1 and one C = 384 shape among them
 GN_SHAPES = [(2, 8, 8, 128), (2, 4, 4, 256), (2, 1, 1, 512), (1, 2, 2, 384), (2, 2, 2, 1024)]
-ATTN_SHAPES = [(2, 64, 4, 8), (2, 64, 1, 8), (1, 2, 256, 64)]
+# [B, H, T, D]: the 32 px UNet's calls at batch 2, the scratch UNet at 256 px
+# (T = 256, D = 8) and google/ddpm-cifar10-32's (T = 256, D = 256) at batch 1
+ATTN_SHAPES = [(2, 64, 4, 8), (2, 64, 1, 8), (1, 2, 256, 64), (1, 4, 256, 8), (1, 1, 256, 256)]
 
 
 def _gn_inputs(shape, seed):
@@ -189,3 +191,74 @@ def test_groupnorm_silu_backward_launch_plan_refuses_what_the_forward_refuses():
 def test_groupnorm_rejects_indivisible_channels():
     with pytest.raises(ValueError, match="not divisible"):
         groupnorm_silu(torch.zeros(1, 2, 2, 48), torch.ones(48), torch.zeros(48), 32)
+
+
+# [B, H, T, D] -> K3's variant in bf16: the main path at the training (128)
+# and sampling (16) batches; the scratch UNet at 256 px, micro-batch 4;
+# google/ddpm-cifar10-32 at batch 16; google/ddpm-ema-celebahq-256's 512-wide
+# head; the envelope's long end; ragged T; one head of 8 tokens of 40
+ATTN_PLAN_CASES = [
+    ((128, 64, 4, 8), "packed"), ((128, 64, 1, 8), "packed"), ((16, 64, 4, 8), "packed"), ((16, 64, 1, 8), "packed"),
+    ((4, 64, 256, 8), "tiled"), ((4, 64, 64, 8), "tiled"), ((16, 1, 256, 256), "tiled"), ((16, 1, 16, 256), "tiled"),
+    ((2, 1, 256, 512), "rowwise"), ((4, 8, 1024, 64), "tiled"), ((1, 1, 1024, 512), "rowwise"),
+    ((2, 3, 100, 64), "tiled"), ((1, 1, 8, 40), "tiled"), ((2, 3, 40, 16), "tiled"), ((1, 2, 33, 16), "tiled"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape,bf16_variant", ATTN_PLAN_CASES)
+def test_attention_launch_plan(shape, bf16_variant, dtype):
+    """K3's launch plan (computed on the CPU; the kernel checks it again):
+    packed for T <= 16 and D <= 32 in both dtypes, tiled for the rest of bf16
+    up to D = 256, rowwise for the rest; every query row covered, shared
+    memory within the H100's 227 KB, and, for packed, a block per SM
+    wherever the rows allow it. Tiled and rowwise blocks stage their head's
+    whole K and V, so they keep their full height (64 rows, four warps)
+    whatever the grid: on the H100 that was faster than shorter blocks at
+    every shape timed."""
+    b, h, t, d = shape
+    plan = ops.attention_plan(b * h, t, d, dtype)
+    want = bf16_variant if dtype == torch.bfloat16 or bf16_variant == "packed" else "rowwise"
+    assert plan.variant == want
+    assert plan.smem_bytes <= 227 * 1024
+    if plan.variant == "packed":
+        assert plan.rows == plan.threads and plan.threads in (32, 64, 128, 256) and plan.smem_bytes == 0
+        assert plan.blocks == -(-b * h * t // plan.threads)
+        finest = -(-b * h * t // 32)
+    elif plan.variant == "tiled":
+        assert plan.threads == 128 and plan.rows == 64
+        assert plan.depth == min(p for p in (16, 32, 64, 128, 256) if p >= d)  # D zero-padded to an instantiation
+        assert plan.blocks == b * h * -(-t // plan.rows)
+        assert plan.smem_bytes >= (plan.rows + 4 * plan.key_tile) * plan.depth * 2
+        finest = 0
+    else:
+        rows_per_warp = 32 // min(32, d)
+        assert plan.threads == 32 * min(4, -(-t // rows_per_warp)) and plan.rows == plan.threads // 32 * rows_per_warp
+        assert plan.key_tile == min(t, 8192 // (2 * d)) and plan.smem_bytes == 8 * plan.key_tile * d
+        assert plan.blocks == b * h * -(-t // plan.rows)
+        finest = 0  # four warps a block, whatever the grid
+    if finest >= 132:
+        assert plan.blocks >= 132
+    assert ops.attention_plan(b * h, t, d, dtype) is plan  # cached
+
+
+def test_attention_plan_runs_every_longer_bf16_call_on_the_tensor_cores():
+    """Every bf16 call with 16 < T and D <= 256 takes the tiled plan with
+    64-row blocks, and every call with T <= 16 and D <= 32 the packed one,
+    in both dtypes."""
+    for t in range(17, 1025):
+        for d in ((8, 64, 256) if t % 97 else range(8, 264, 8)):
+            plan = ops.attention_plan(3, t, d, torch.bfloat16)
+            assert plan.variant == "tiled" and plan.rows == 64, (t, d, plan)
+    for t in range(1, 17):
+        for d in (8, 16, 24, 32):
+            for dtype in (torch.float32, torch.bfloat16):
+                assert ops.attention_plan(5, t, d, dtype).variant == "packed", (t, d, dtype)
+
+
+def test_attention_plan_refuses_outside_the_envelope():
+    for t, d in ((1025, 8), (0, 8), (4, 4), (4, 12), (4, 520)):
+        with pytest.raises(ValueError, match="envelope"):
+            ops.attention_plan(1, t, d, torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.attention_plan(1, 4, 8, torch.float16)

@@ -27,7 +27,7 @@ TINY = UNet2DConfig(
 
 
 def _sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "time_attention.py")]
     for dirpath, _, names in os.walk(PACKAGE_DIR):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -371,6 +371,48 @@ def test_warmup_step_zero_has_lr_zero_and_generator_draws_are_seeded():
         step(state, image, is_clean, None)
 
 
+TINY_DROPOUT = {**TINY, "dropout": 0.1}
+
+
+def test_train_step_with_dropout_config_matches_jax():
+    """The JAX step never turns dropout on (``model.apply`` with
+    ``deterministic`` left True, no dropout RNG), so a config's dropout rate
+    changes nothing there. The port's step computes the same, even from a
+    model left in train mode: with a dropout-0.1 TINY config and JAX's draws,
+    loss and pre-clip grad norm within rtol 1e-4 of JAX's, over two steps,
+    and the parameters within the tolerance of ``_assert_params_close``."""
+    pair = Pair(cfg=TINY_DROPOUT)
+    pair.model.train()
+    image, is_clean = _batch(8, 16, seed=14)
+    for seed in (15, 16):
+        ours, theirs = pair.run(image, is_clean, seed)
+        assert ours["loss"] == pytest.approx(theirs["loss"], rel=1e-4)
+        assert ours["grad_norm"] == pytest.approx(theirs["grad_norm"], rel=1e-4)
+    assert not pair.model.training
+    _assert_params_close(pair.param_diffs(), LR)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_model_samples_deterministically_after_a_train_step(dtype):
+    """A dropout-0.1 TINY model computing in ``dtype``, after one train step:
+    two forwards of the model, and two of its ``compute_copy``, give the
+    same bits (dropout would draw a new mask each time)."""
+    model = _port_model(TINY_DROPOUT, dtype=dtype)
+    sched = _schedule()
+    opt, _ = make_optimizer(LR, num_warmup_steps=0, num_training_steps=100)
+    state = create_train_state(model, opt, *_poison_constants(16))
+    step = make_train_step(model, opt, T, sched.alphas, sched.alphas_cumprod, device="cpu")
+    image, is_clean = _batch(4, 16, seed=17)
+    step(state, image, is_clean, torch.Generator().manual_seed(18))
+    x = torch.from_numpy(np.random.RandomState(19).randn(2, 16, 16, 3).astype(np.float32))
+    t = torch.tensor([5, 700])
+    with torch.no_grad():
+        for net in (model, model.compute_copy(dtype)):
+            assert not net.training and net.dtype == dtype
+            first, second = net(x, t), net(x, t)
+            assert torch.isfinite(first).all() and torch.equal(first, second)
+
+
 def test_make_train_step_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = _port_model(TINY)

@@ -14,6 +14,7 @@ from baddiffusion_tpu.io.hf import flax_to_torch_state_dict, torch_to_flax_param
 from baddiffusion_tpu.models import UNet2DConfig as JaxUNet2DConfig
 from baddiffusion_tpu.models import UNet2DModel as JaxUNet2DModel
 from baddiffusion_tpu.models.unet2d import DEFAULT_SCRATCH_CONFIG as JAX_SCRATCH
+from baddiffusion_tpu_torch import ops
 from baddiffusion_tpu_torch.io import state_dict_from_jax
 from baddiffusion_tpu_torch.models import DEFAULT_SCRATCH_CONFIG, GroupNorm, UNet2DConfig, UNet2DModel
 
@@ -230,6 +231,77 @@ def test_bf16_groupnorm_keeps_an_f32_affine_as_the_jax_model(seed):
         if affine == torch.float32:
             assert np.all(d <= 2.0**-7 * np.abs(want) + 1e-6), d.max()
     assert frac[torch.float32] <= 2e-3 and frac[torch.bfloat16] >= 0.2, frac
+
+
+def _bf16_ulps(got, want):
+    """|got − want| in units of the bf16 spacing at |got| (8 significant bits)."""
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(got), 2.0**-100))) - 7)
+    return np.abs(got - want) / ulp
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_default_jax_groupnorm_silu_rounds_twice_where_the_port_rounds_once(seed):
+    """The gap between the JAX model's default bf16 GroupNorm → SiLU (the
+    norm rounds to bf16, then SiLU runs on the bf16 value: ``gn_silu``
+    without ``BADDIFFUSION_FUSE_GN``, which ``bench.py`` and the trainer run)
+    and the port's fused form (SiLU in f32, one rounding). Measured on seeds
+    0-5: 44.8-46.3% of the outputs differ, 2.0-2.5% of them by more than one
+    bf16 step, none by more than 6 steps, the largest by 0.54-0.72% of
+    max |y|. Bounds: 35-55% differ, at most 5% by more than one step, none
+    by more than 8, none by more than 1% of max |y|."""
+    from baddiffusion_tpu.models.resnet import GroupNorm as JaxGroupNorm
+
+    rng = np.random.RandomState(seed)
+    c, groups = 64, 8
+    scale = (1 + 0.3 * rng.randn(c)).astype(np.float32)
+    bias = (0.3 * rng.randn(c)).astype(np.float32)
+    x = np.array(jnp.asarray(rng.randn(2, 8, 8, c) * 2 + 0.5, jnp.bfloat16).astype(jnp.float32))
+    jparams = {"params": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}}
+    want = jax.nn.silu(JaxGroupNorm(groups, 1e-5).apply(jparams, jnp.asarray(x, jnp.bfloat16)))
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want, np.float32)
+    norm = GroupNorm(groups, c, 1e-5, silu=True)
+    with torch.no_grad():
+        norm.weight.copy_(torch.from_numpy(scale))
+        norm.bias.copy_(torch.from_numpy(bias))
+        got = norm(torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
+    ulps = _bf16_ulps(got, want)
+    assert 0.35 <= (ulps > 0).mean() <= 0.55, (ulps > 0).mean()
+    assert (ulps > 1).mean() <= 0.05 and ulps.max() <= 8, ((ulps > 1).mean(), ulps.max())
+    assert np.abs(got - want).max() <= 0.01 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 4, 8), (2, 64, 1, 8), (2, 4, 64, 32), (1, 2, 255, 64)])
+def test_bf16_jax_attention_rounds_its_probabilities_where_the_port_keeps_f32(shape):
+    """The gap between the JAX model's bf16 attention at T < 256
+    (``attention_reference``: f32 softmax, probabilities rounded to bf16
+    before the product with V) and the port's (probabilities and the product
+    in f32, one rounding of the output), on the same bf16 q, k, v. Measured
+    on seeds 0-5: at T = 1 (p = 1) nothing differs; at T = 4, 64 and 255,
+    35-42% of the outputs differ, the largest by 0.28-0.76% of max |y|.
+    Bounds: 30-50% differ, none by more than 1% of max |y|. With the
+    probabilities kept in f32 on the JAX side too, the gap closes to what
+    sums in another order leave (measured: at most 0.034% of the outputs,
+    by at most 0.11% of max |y|; bounds 0.1% and 0.2%)."""
+    from baddiffusion_tpu.ops.attention import attention_reference
+
+    rng = np.random.RandomState(0)
+    q, k, v = (np.array(jnp.asarray(rng.randn(*shape), jnp.bfloat16).astype(jnp.float32)) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    qj, kj, vj = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(attention_reference(qj, kj, vj, scale), np.float32)
+    probs = jax.nn.softmax(jnp.einsum("bhqd,bhkd->bhqk", qj, kj, preferred_element_type=jnp.float32) * scale, -1)
+    want_f32_probs = np.asarray(jnp.einsum("bhqk,bhkd->bhqd", probs, vj.astype(jnp.float32)).astype(jnp.bfloat16),
+                                np.float32)
+    got = ops.attention_plain(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)), scale).float().numpy()
+    d_f32_probs = np.abs(got - want_f32_probs)
+    assert (d_f32_probs > 0).mean() <= 1e-3 and d_f32_probs.max() <= 2e-3 * np.abs(want).max()
+    d = np.abs(got - want)
+    if shape[2] == 1:
+        assert not d.any()
+    else:
+        assert 0.30 <= (d > 0).mean() <= 0.50, (d > 0).mean()
+    assert d.max() <= 0.01 * np.abs(want).max()
 
 
 def test_bf16_compute_forward_matches_the_jax_bf16_model(monkeypatch):
