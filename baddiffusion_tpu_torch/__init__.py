@@ -8,7 +8,10 @@ written by hand for Hopper (``csrc/``), built with nvcc at first use.
 
 Ported so far: backdoor DDPM sampling on the UNet (``models``, ``schedulers``,
 ``pipelines``, ``io``, ``data.triggers``), with the GroupNorm+SiLU and
-attention kernels (``ops``).
+attention kernels (``ops``); the backdoor train step (``attack``,
+``data.poison``, ``training.optim``, ``training.train``); and the trainer
+around it (``data.datasets``, ``data.prefetch``, ``training.ema``,
+``training.checkpoint``, ``training.trainer``, ``utils``).
 """
 
 __version__ = "0.1.0"

@@ -26,6 +26,7 @@ from baddiffusion_tpu_torch.io import load_unet, save_unet
 from baddiffusion_tpu_torch.models.unet2d import UNet2DModel
 from baddiffusion_tpu_torch.pipelines.sampler import NoiseSource, sample_loop, to_images
 from baddiffusion_tpu_torch.schedulers import load_scheduler
+from baddiffusion_tpu_torch.utils.image import batchify
 
 MODEL_INDEX_NAME = "model_index.json"
 
@@ -133,12 +134,6 @@ class DiffusionPipeline:
         images = to_images(sample).cpu().numpy()
         movie = None if movie is None else to_images(movie).cpu().numpy()
         return PipelineOutput(images=images, movie=movie)
-
-
-def batchify(n: int, max_batch: int):
-    """Split ``n`` into chunks of at most ``max_batch``."""
-    replica, residual = divmod(n, max_batch)
-    return [max_batch] * replica + ([residual] if residual else [])
 
 
 def batch_sampling(

@@ -37,10 +37,26 @@
    poisoning BOX_14 -> CORNER at rate 0.1: warm-up steps, then timed steps;
    then the device time of a step split into forward, backward and optimizer.
 5. Launch counts over each main path's run (the sampling chains of phase 3,
-   the timed train steps of phase 4; counters set to 0 just before each and
-   read just after): every GroupNorm+SiLU and attention call must have gone
-   through its kernel, 65 K1 and 6 K3 per UNet forward and, in training, 65
-   K2 per step.
+   the timed train steps of phase 4, the two train_loop runs of phase 6;
+   counters set to 0 just before each and read just after): every
+   GroupNorm+SiLU and attention call must have gone through its kernel, 65
+   K1 and 6 K3 per UNet forward and, in training, 65 K2 per step.
+6. The trainer path (run after phase 4): train_loop on the scratch UNet at
+   bf16 compute with f32 parameters, on DatasetLoader("FAKE", 1024 images,
+   32 px, batch 128, seed 0) poisoned BOX_14 -> CORNER at 0.1, with
+   bench.py's optimizer, a Tracker, device prefetch, 4x4 sample grids (clean
+   and backdoor, with the movie's first frame) and a checkpoint every epoch,
+   for 2 epochs; then the checkpoint restored into a fresh model and state
+   and train_loop resumed to 3 epochs. The grids sample 50 steps, not 1000
+   (phase 3 runs the 1000-step chain): a cut in depth only. Checked: every
+   logged loss finite, one metrics.jsonl record a step; every grid a
+   138x138x3 PNG; data.json's epoch and step; the restored parameters, Adam
+   moments, count and step, and the HF export's weights, bitwise those of the
+   live state at the save; the resumed loop's start and end steps; an async
+   save, with a train step run before it is finished, read back bitwise.
+   Printed: the loop's ms a step and samples/s beside phase 4's bare step,
+   a grid's sampling time, a sync save's and the HF export's time, the
+   phase's peak memory.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its numbers. Any failed check raises, and the script exits
@@ -51,6 +67,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -64,12 +81,22 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from baddiffusion_tpu_torch import ops
-from baddiffusion_tpu_torch.data import Backdoor, trigger_mask
+from baddiffusion_tpu_torch.data import Backdoor, DatasetLoader, trigger_mask
 from baddiffusion_tpu_torch.models import DEFAULT_SCRATCH_CONFIG, UNet2DModel
 from baddiffusion_tpu_torch.ops import _build
 from baddiffusion_tpu_torch.pipelines import DiffusionPipeline
 from baddiffusion_tpu_torch.schedulers import DDPMConfig, DDPMScheduler
-from baddiffusion_tpu_torch.training import create_train_state, make_optimizer, make_train_step
+from baddiffusion_tpu_torch.training import (
+    create_train_state,
+    finish_async_saves,
+    load_trainer_state,
+    make_optimizer,
+    make_train_step,
+    save_checkpoint,
+    save_trainer_state,
+    train_loop,
+)
+from baddiffusion_tpu_torch.utils import Tracker
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TMP_BASE = os.path.join(ROOT, ".chip_smoke_tmp")
@@ -112,12 +139,20 @@ SAMPLE_BATCH = 16
 SAMPLE_STEPS = 1000
 PROFILE_STEPS = 20
 PROFILE_ATTEMPTS = 3
+EVENT_TIMED = "(whole window, CUDA events)"  # device_profile's one entry when the profiler recorded nothing
 # the train step: bench.py's batch, optimizer and poisoning
 TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 2e-4, 500, 10_000
 POISON_RATE = 0.1
 TRAIN_WARMUP_CALLS = 3
 TRAIN_TIMED_STEPS = 20
 TRAIN_PROFILE_STEPS = 3
+# the trainer path: FAKE images, epochs of the first run and of the resumed
+# one, the grids' batch and chain length (1000 in phase 3: a cut in depth)
+TRAINER_FAKE_SIZE = 1024
+TRAINER_EPOCHS, TRAINER_RESUME_EPOCHS = 2, 3
+TRAINER_SAMPLE_N = 16
+TRAINER_SAMPLING_STEPS = 50
+GRID_PX = 4 * 32 + 5 * 2  # a 4x4 grid of 32 px images, 2 px borders
 # kernel-name fragments -> the layer they belong to, for the device-time breakdown
 KERNEL_GROUPS = (
     ("groupnorm_silu (K1)", ("groupnorm_silu_fwd_kernel",)),
@@ -163,8 +198,11 @@ def device_profile(fn, reps: int = 20):
     overhead. Host op times include the profiler's own cost.
 
     Now and then a profiler session on the card comes back with no device
-    events at all (rarely: about one session in 200); the window is then
-    measured again, at most ``PROFILE_ATTEMPTS`` times in all."""
+    events at all (about one session in 200, at times several in a row); the
+    window is then measured again, at most ``PROFILE_ATTEMPTS`` times in all,
+    and after that timed with CUDA events: its device time is then the
+    window's wall time, launch gaps included, under the one name
+    ``EVENT_TIMED``, with no host ops."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
@@ -181,11 +219,13 @@ def device_profile(fn, reps: int = 20):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
         }
         if kernels:
-            break
+            host = {e.key: e.self_cpu_time_total / 1e3 / reps for e in events if e.device_type == DeviceType.CPU}
+            return wall * 1e3 / reps, sum(kernels.values()), kernels, host
         print(f"   (profiler session {attempt} recorded no device events; measuring again)")
-    check(bool(kernels), f"the profiler recorded no device time in {PROFILE_ATTEMPTS} sessions")
-    host = {e.key: e.self_cpu_time_total / 1e3 / reps for e in events if e.device_type == DeviceType.CPU}
-    return wall * 1e3 / reps, sum(kernels.values()), kernels, host
+    ms = time_ms(fn, reps=reps, repeats=1)
+    print(f"   (no device events in {PROFILE_ATTEMPTS} profiler sessions: this window timed with CUDA events, "
+          "launch gaps included)")
+    return ms, ms, {EVENT_TIMED: ms}, {}
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -710,19 +750,226 @@ def phase_train(dev, smi: str) -> tuple:
     print(f"     host self time per step (profiled): all ops {sum(host.values()):.3f} ms; top: {top_host_ops(host, 1)}")
     print("     host self time per step of the GroupNorm+SiLU autograd Functions (K1 forward, K2 backward): "
           + ", ".join(f"{name} {ms:.3f} ms" for name, ms in host.items() if "GroupNormSiLU" in name))
-    return TRAIN_TIMED_STEPS, counts
+    return TRAIN_TIMED_STEPS, counts, ms_step
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a TrainState by checkpoint key, and its two counters."""
+    names = list(state.params)
+    out = {f"params/{k}": p.detach() for k, p in state.params.items()}
+    out.update({f"mu/{k}": m for k, m in zip(names, state.opt_state.mu)})
+    out.update({f"nu/{k}": v for k, v in zip(names, state.opt_state.nu)})
+    out.update(count=state.opt_state.count, step=state.step)
+    return out
+
+
+def check_same_state(label: str, got: dict, want: dict) -> None:
+    check(got.keys() == want.keys(), f"{label}: the state's keys differ")
+    bad = [k for k in want if not (torch.equal(got[k], want[k]) if torch.is_tensor(want[k]) else got[k] == want[k])]
+    check(not bad, f"{label}: not bitwise equal: {bad[:5]} ({len(bad)} of {len(want)})")
+
+
+def read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def check_grids(run_dir: str, epochs) -> None:
+    """Each epoch's clean and backdoor grid and first-frame grid: a
+    GRID_PX x GRID_PX RGB PNG with finite, varied pixels."""
+    from PIL import Image
+
+    for e in epochs:
+        for sub in ("samples", "backdoor_samples"):
+            for name in (f"ep{e}.png", f"ep{e}_t0.png"):
+                path = os.path.join(run_dir, sub, name)
+                check(os.path.exists(path), f"trainer: grid {sub}/{name} missing (a swallowed sampling failure?)")
+                with Image.open(path) as img:
+                    arr = np.asarray(img)
+                check(arr.shape == (GRID_PX, GRID_PX, 3) and arr.std() > 0, f"trainer: grid {sub}/{name} is {arr.shape}")
+
+
+def step_ms(records) -> list:
+    """Wall ms between consecutive logged steps of one epoch (each log reads
+    the loss, so each record follows its step's end on the device)."""
+    return [1e3 * (b["_time"] - a["_time"]) for a, b in zip(records, records[1:])
+            if b["_step"] == a["_step"] + 1 and b["epoch"] == a["epoch"]]
+
+
+def phase_trainer(dev, smi: str, bare_ms: float) -> tuple:
+    """Drive train_loop for TRAINER_EPOCHS, restore its checkpoint into a
+    fresh model and state, resume to TRAINER_RESUME_EPOCHS, and check the
+    run's outputs. Launch counters are set to 0 just before each loop and
+    read just after. Returns (train steps, sampling forwards, the summed
+    launch counts)."""
+    print(f"-- the trainer path: train_loop on the scratch UNet, bf16 compute on f32 parameters; FAKE "
+          f"{TRAINER_FAKE_SIZE} images at 32 px, batch {BATCH}, BOX_14 -> CORNER at {POISON_RATE}; bench.py's "
+          f"optimizer; grids ({TRAINER_SAMPLE_N} images, with movie) and a checkpoint every epoch; "
+          f"{TRAINER_EPOCHS} epochs, then resumed to {TRAINER_RESUME_EPOCHS}. The grids sample "
+          f"{TRAINER_SAMPLING_STEPS} steps, not 1000 (phase 3 runs the 1000-step chain): a cut in depth only")
+    # no network here: wandb, where installed, stays off (the checks read the JSONL stream)
+    os.environ["WANDB_MODE"] = "disabled"
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    os.makedirs(TMP_BASE, exist_ok=True)
+    run_dir = tempfile.mkdtemp(dir=TMP_BASE)
+    try:
+        dsl = DatasetLoader("FAKE", fake_size=TRAINER_FAKE_SIZE, image_size=32, batch_size=BATCH, seed=0, root=run_dir)
+        dsl.set_poison("BOX_14", "CORNER", poison_rate=POISON_RATE).prepare_dataset()
+        per_epoch = dsl.num_batch
+        scheduler = DDPMScheduler(DDPMConfig())
+        schedule = scheduler.create_state().schedule
+        opt, lr_schedule = make_optimizer(TRAIN_LR, num_warmup_steps=TRAIN_WARMUP, num_training_steps=TRAIN_TOTAL)
+        call_s = []  # wall seconds of each pipeline call the grids make
+
+        class TimedPipeline(DiffusionPipeline):
+            def __call__(self, *args, **kwargs):
+                t0 = time.perf_counter()
+                out = super().__call__(*args, **kwargs)  # returns host arrays: the device is done
+                call_s.append(time.perf_counter() - t0)
+                return out
+
+        def trainer(unet):
+            state = create_train_state(unet, opt, dsl.trigger, dsl.target, dsl.mask)
+            step = make_train_step(unet, opt, 1000, schedule.alphas, schedule.alphas_cumprod)
+            return state, step, lambda st: TimedPipeline(unet, scheduler, compute_dtype=torch.bfloat16)
+
+        def run(state, step, make_pipeline, epochs, start_epoch=0, start_step=0):
+            tracker = Tracker(os.path.join(run_dir, "logs"), config=dict(batch=BATCH, lr=TRAIN_LR, epochs=epochs))
+            forwards = [0]
+
+            def count_forward(module, args):
+                if isinstance(module, UNet2DModel) and args[0].is_cuda:
+                    forwards[0] += 1
+
+            hook = torch.nn.modules.module.register_module_forward_pre_hook(count_forward)
+            grids_before = len(call_s)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                state, global_step = train_loop(
+                    dsl=dsl, train_step=step, state=state, lr_schedule=lr_schedule, epochs=epochs, tracker=tracker,
+                    out_dir=run_dir, make_pipeline=make_pipeline, seed=0, start_epoch=start_epoch,
+                    start_step=start_step, save_image_epochs=1, save_model_epochs=1, log_every=1,
+                    sample_n=TRAINER_SAMPLE_N, sampling_steps=TRAINER_SAMPLING_STEPS)
+            finally:
+                hook.remove()
+                tracker.close()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            sampled = (len(call_s) - grids_before) * TRAINER_SAMPLING_STEPS
+            check(forwards[0] == global_step - start_step + sampled,
+                  f"trainer: {forwards[0]} UNet forwards, want {global_step - start_step} train + {sampled} sampling")
+            return state, global_step, counts, sampled, time.perf_counter() - t0
+
+        # the first run: epochs 0 .. TRAINER_EPOCHS-1 from step 0
+        unet = seeded_scratch_unet(dev, dtype=torch.bfloat16)
+        state, step, make_pipeline = trainer(unet)
+        state, end1, counts1, sampled1, wall1 = run(state, step, make_pipeline, TRAINER_EPOCHS)
+        steps1 = TRAINER_EPOCHS * per_epoch
+        check(end1 == state.step == state.opt_state.count == steps1, f"trainer: first run ended at step {end1}")
+        check_grids(run_dir, range(TRAINER_EPOCHS))
+        saved = read_json(os.path.join(run_dir, "data.json"))
+        check(saved == {"epoch": TRAINER_EPOCHS - 1, "step": steps1, "ckpt": "ckpt"}, f"trainer: data.json {saved}")
+        live = state_tensors(state)
+
+        # restore into a fresh model and state; the HF export from the same save
+        fresh = UNet2DModel(DEFAULT_SCRATCH_CONFIG, generator=torch.Generator().manual_seed(9), dtype=torch.bfloat16)
+        state2, step2, make_pipeline2 = trainer(fresh)
+        state2, start_epoch, start_step = load_trainer_state(run_dir, state2)
+        check((start_epoch, start_step) == (TRAINER_EPOCHS - 1, steps1),
+              f"trainer: restored at epoch {start_epoch}, step {start_step}")
+        check_same_state("trainer: restored state vs the live state at the save", state_tensors(state2), live)
+        exported = DiffusionPipeline.from_pretrained(run_dir).unet.state_dict()
+        check_same_state("trainer: HF export vs the live parameters at the save",
+                         {f"params/{k}": exported[k] for k in state.params},
+                         {k: v for k, v in live.items() if k.startswith("params/")})
+        del exported
+        print(f"   first run: {end1} steps over {TRAINER_EPOCHS} epochs in {wall1:.2f} s; data.json {saved}; restored "
+              "parameters, mu, nu, count and step bitwise equal to the live state; HF export bitwise equal")
+
+        # the resumed run re-runs the saved epoch, as the reference's resume does
+        state2, end2, counts2, sampled2, wall2 = run(state2, step2, make_pipeline2, TRAINER_RESUME_EPOCHS,
+                                                     start_epoch, start_step)
+        steps2 = (TRAINER_RESUME_EPOCHS - start_epoch) * per_epoch
+        check(end2 == state2.step == state2.opt_state.count == start_step + steps2,
+              f"trainer: resumed run ended at step {end2}, want {start_step + steps2}")
+        check_grids(run_dir, range(TRAINER_RESUME_EPOCHS))
+        saved = read_json(os.path.join(run_dir, "data.json"))
+        check(saved == {"epoch": TRAINER_RESUME_EPOCHS - 1, "step": end2, "ckpt": "ckpt"},
+              f"trainer: data.json after the resume {saved}")
+        with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in records]
+        check([r["_step"] for r in records] == list(range(steps1)) + list(range(start_step, end2)),
+              f"trainer: metrics.jsonl steps {[r['_step'] for r in records]}")
+        check(records[steps1]["epoch"] == start_epoch and bool(np.isfinite(losses).all()),
+              f"trainer: resumed at epoch {records[steps1]['epoch']}, losses {losses}")
+        print(f"   resumed run: epoch {start_epoch}, step {start_step} -> step {end2} in {wall2:.2f} s; "
+              f"{len(records)} records, one a step, every loss finite: {losses[0]:.4f} -> {losses[-1]:.4f}")
+
+        # timings: the loop's step from the tracker's stamps, the grids, a sync save and the HF export
+        gaps = step_ms(records[:steps1]) + step_ms(records[steps1:])
+        loop_ms = statistics.median(gaps)
+        grid_s = [a + b for a, b in zip(call_s[::2], call_s[1::2])]
+        save_dir = os.path.join(run_dir, "timed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_trainer_state(save_dir, state2, TRAINER_RESUME_EPOCHS - 1)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        make_pipeline2(state2).save_pretrained(save_dir)
+        export_s = time.perf_counter() - t0
+        state_gb = sum(t.numel() * t.element_size() for t in state_tensors(state2).values() if torch.is_tensor(t)) / 1e9
+        print(f"   train_loop step B={BATCH} (median of {len(gaps)} step-to-step gaps within an epoch): {loop_ms:.3f} "
+              f"ms/step, {BATCH / loop_ms * 1e3:.1f} samples/s (mean {statistics.mean(gaps):.3f} ms); phase 4's bare "
+              f"step {bare_ms:.3f} ms/step; on {smi}")
+        print(f"   sample_grids ({TRAINER_SAMPLE_N} images, {TRAINER_SAMPLING_STEPS} steps, clean + backdoor with "
+              f"movie): median {statistics.median(grid_s):.2f} s a call over {len(grid_s)} calls, "
+              f"{statistics.median(call_s) / TRAINER_SAMPLING_STEPS * 1e3:.3f} ms/step a chain; on {smi}")
+        print(f"   sync save_trainer_state ({state_gb:.3f} GB of parameters, mu, nu) {save_s:.2f} s; HF export "
+              f"(save_pretrained) {export_s:.2f} s; on {smi}")
+
+        # async: a train step runs before the write is finished; the read-back holds the saved bits
+        async_dir = os.path.join(run_dir, "async")
+        at_save = {k: v.clone() if torch.is_tensor(v) else v for k, v in state_tensors(state2).items()}
+        t0 = time.perf_counter()
+        save_checkpoint(async_dir, state2, TRAINER_RESUME_EPOCHS - 1, make_pipeline2, async_save=True)
+        async_s = time.perf_counter() - t0
+        image, is_clean = (torch.from_numpy(a).to(dev) for a in train_batch(np.random.RandomState(5), BATCH))
+        step2(state2, image, is_clean, torch.Generator(dev).manual_seed(6))
+        t0 = time.perf_counter()
+        finish_async_saves()
+        finish_s = time.perf_counter() - t0
+        check(read_json(os.path.join(async_dir, "data.json"))["ckpt"] == "ckpt.v0", "trainer: async data.json")
+        _, _, _ = load_trainer_state(async_dir, state)
+        check_same_state("trainer: async save read back vs the state at the save", state_tensors(state), at_save)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"   async save_checkpoint returned in {async_s:.2f} s (host copy and HF export), finished "
+              f"{finish_s:.2f} s after a train step; read back bitwise equal to the state at the save")
+        print(f"   peak device memory over the phase {peak:.1f} GiB; the phase took "
+              f"{time.perf_counter() - phase_t0:.1f} s; on {smi}")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        if not os.listdir(TMP_BASE):
+            os.rmdir(TMP_BASE)
+    counts = {k: counts1[k] + counts2[k] for k in counts1}
+    return end1 + steps2, sampled1 + sampled2, counts
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs only on a GPU", file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     dev = torch.device("cuda")
     smi = phase_environment()
     gen = torch.Generator(dev).manual_seed(0)
     kernels = [phase_groupnorm(dev, gen), phase_groupnorm_backward(dev, gen), phase_attention(dev, gen)]
     forwards, sampling = phase_slice(dev, smi)
-    steps, training = phase_train(dev, smi)
+    steps, training, bare_ms = phase_train(dev, smi)
+    loop_steps, loop_sampled, trainer_counts = phase_trainer(dev, smi, bare_ms)
 
     for path, n, counts, want in (
         ("sampling", f"{forwards} UNet forwards", sampling,
@@ -731,12 +978,17 @@ def main() -> int:
         ("training", f"{steps} train steps", training,
          {"groupnorm_silu": GN_PER_FORWARD * steps, "groupnorm_silu_backward": GN_PER_FORWARD * steps,
           "attention": ATTN_PER_FORWARD * steps}),
+        ("trainer", f"{loop_steps} train steps and {loop_sampled} sampling forwards", trainer_counts,
+         {"groupnorm_silu": GN_PER_FORWARD * (loop_steps + loop_sampled),
+          "groupnorm_silu_backward": GN_PER_FORWARD * loop_steps,
+          "attention": ATTN_PER_FORWARD * (loop_steps + loop_sampled)}),
     ):
         print(f"launch counts over the {path} path ({n} on the card): "
               + ", ".join(f"{k}={v}" for k, v in counts.items()))
         check(counts == want and counts["groupnorm_silu"] > 0, f"{path} launches {counts}, want {want}")
     for k in kernels:
-        k["launches"] = sampling[k["name"]] + training[k["name"]]
+        k["launches"] = sampling[k["name"]] + training[k["name"]] + trainer_counts[k["name"]]
+    print(f"chip_smoke: every check passed in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, beyond the main path's shapes: every
 pack width and lane layout, misaligned and partial-tile inputs, each launch
 plan, the wrappers' refusals, the GroupNorm+SiLU backward (K2) and its
-bitwise-repeatable dx, dγ and dβ, and a small UNet on the card against the
-CPU's plain path, forward and one train step.
+bitwise-repeatable dx, dγ and dβ, a small UNet on the card against the
+CPU's plain path (forward, one train step, two steps of ``train_loop``), and
+``device_prefetch``'s side-stream copies.
 
 These tests need an NVIDIA GPU and skip without one. Run them on the card
 without the JAX-side conftest (this file imports no JAX):
@@ -10,6 +11,7 @@ without the JAX-side conftest (this file imports no JAX):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -448,3 +450,96 @@ def test_small_unet_train_step_on_the_card_matches_the_cpu(dev):
     gmax = max(v.abs().max().item() for v in g_cpu.values())
     for k, want in g_cpu.items():
         torch.testing.assert_close(g_card[k], want, rtol=1e-4, atol=1e-5 * gmax, msg=k)
+
+
+def test_device_prefetch_batches_are_ready_when_read(dev):
+    """50 batches of 8 MB through ``device_prefetch``: each is read on the
+    default stream right after the yield, on even batches with that stream
+    idle (its read must wait for the side stream's copy) and on odd ones
+    behind a large matmul (the batch's memory must not go to a later copy
+    before the read runs), then dropped. Every read equals its host source."""
+    from baddiffusion_tpu_torch.data import device_prefetch
+
+    rng = np.random.RandomState(0)
+    host = [{"image_u8": rng.randint(0, 256, (2048, 64, 64), dtype=np.uint8), "is_clean": rng.rand(2048) < 0.5}
+            for _ in range(50)]
+    a = torch.randn(4096, 4096, device=dev)
+    reads = []
+    for i, batch in enumerate(device_prefetch(iter(host), dev, size=2)):
+        assert batch["image_u8"].is_cuda and batch["is_clean"].dtype == torch.bool
+        if i % 2:
+            for _ in range(4):
+                a = a @ a / 64.0
+        reads.append({k: v.clone() for k, v in batch.items()})
+        del batch
+    torch.cuda.synchronize()
+    assert len(reads) == 50
+    for got, want in zip(reads, host):
+        for k in want:
+            assert np.array_equal(got[k].cpu().numpy(), want[k]), k
+
+
+def test_train_loop_on_the_card_matches_the_cpu(dev, tmp_path):
+    """Two steps of ``train_loop`` (FAKE at 16 px, batch 4, one epoch) on the
+    small UNet, on the card and on the CPU from the same weights, each step
+    given the same draws from a CPU generator seeded by the step: the logged
+    losses within rtol 1e-4, the parameters within Adam's sign-like
+    tolerance (2·lr a step; all but 1e-3 within 1e-5), the same checkpoint
+    step; on the card every GroupNorm+SiLU and attention call went through
+    its kernel: SMALL_GN K1 and K2 and SMALL_ATTN K3 a step, SMALL_GN K1 and
+    SMALL_ATTN K3 for each of the grids' 2 × 2 sampling forwards."""
+    import json
+    import os
+
+    from baddiffusion_tpu_torch.data import DatasetLoader
+    from baddiffusion_tpu_torch.pipelines import DiffusionPipeline
+    from baddiffusion_tpu_torch.schedulers import DDPMConfig, DDPMScheduler
+    from baddiffusion_tpu_torch.training import create_train_state, make_optimizer, make_train_step, train_loop
+
+    class Log:
+        def __init__(self):
+            self.records = []
+
+        def log(self, metrics, step=None):
+            self.records.append((step, metrics["loss"]))
+
+    sched = DDPMScheduler(DDPMConfig())
+    schedule = sched.create_state().schedule
+    weights = UNet2DModel(SMALL, device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    results = {}
+    for device in ("cpu", "cuda"):
+        dsl = DatasetLoader("FAKE", fake_size=8, image_size=16, batch_size=4).set_poison("BOX_8", "CORNER")
+        dsl.prepare_dataset()
+        model = UNet2DModel(SMALL, device=device)
+        model.load_state_dict(weights)
+        opt, lr_schedule = make_optimizer(1e-3, num_warmup_steps=0, num_training_steps=100)
+        state = create_train_state(model, opt, dsl.trigger, dsl.target, dsl.mask)
+        step = make_train_step(model, opt, 1000, schedule.alphas, schedule.alphas_cumprod, device=device)
+
+        def drawn(state, image_u8, is_clean, generator):
+            assert generator.device.type == image_u8.device.type == device
+            g = torch.Generator().manual_seed(100 + state.step)
+            t, noise = torch.randint(0, 1000, (4,), generator=g), torch.randn(4, 16, 16, 3, generator=g)
+            return step(state, image_u8, is_clean, None, timesteps=t, noise=noise)
+
+        log = Log()
+        out = str(tmp_path / device)
+        ops.reset_launch_counts()
+        state, n = train_loop(dsl=dsl, train_step=drawn, state=state, lr_schedule=lr_schedule, epochs=1, tracker=log,
+                              out_dir=out, make_pipeline=lambda st: DiffusionPipeline(model, sched, device=device),
+                              log_every=1, sample_n=2, sampling_steps=2)
+        counts = ops.launch_counts()
+        with open(os.path.join(out, "data.json")) as f:
+            saved = json.load(f)
+        results[device] = (log.records, {k: p.detach().cpu() for k, p in state.params.items()}, counts, saved, n)
+    (l_cpu, p_cpu, c_cpu, s_cpu, n_cpu), (l_card, p_card, c_card, s_card, n_card) = results["cpu"], results["cuda"]
+    assert n_cpu == n_card == 2 and s_cpu == s_card == {"epoch": 0, "step": 2, "ckpt": "ckpt"}
+    assert [s for s, _ in l_card] == [s for s, _ in l_cpu] == [0, 1]
+    for (_, a), (_, b) in zip(l_card, l_cpu):
+        assert a == pytest.approx(b, rel=1e-4)
+    diff = torch.cat([(p_card[k] - p_cpu[k]).abs().flatten() for k in p_cpu])
+    assert diff.max().item() <= 4e-3 + 1e-6 and (diff > 1e-5).double().mean().item() <= 1e-3
+    assert c_cpu == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0}
+    forwards = 2 + 2 * 2
+    assert c_card == {"groupnorm_silu": SMALL_GN * forwards, "groupnorm_silu_backward": SMALL_GN * 2,
+                      "attention": SMALL_ATTN * forwards}

@@ -50,9 +50,17 @@ def test_imports_nothing_of_jax_or_the_jax_package(path):
         assert top not in FORBIDDEN, f"{os.path.relpath(path, ROOT)} imports {module}"
 
 
+# the trainer's modules, which the import checks above and below must reach
+TRAINER_MODULES = ("utils.logging", "utils.image", "utils.samples", "utils.trackers", "data.datasets",
+                   "data.prefetch", "training.ema", "training.checkpoint", "training.trainer")
+
+
 def test_every_module_imports_without_nvcc_or_a_gpu():
     names = [m.name for m in pkgutil.walk_packages([PACKAGE_DIR], prefix="baddiffusion_tpu_torch.")]
     assert "baddiffusion_tpu_torch.ops._build" in names and "baddiffusion_tpu_torch.pipelines.pipeline" in names
+    assert {f"baddiffusion_tpu_torch.{m}" for m in TRAINER_MODULES} <= set(names)
+    checked = {os.path.relpath(p, PACKAGE_DIR) for p in _sources()}
+    assert {m.replace(".", os.sep) + ".py" for m in TRAINER_MODULES} <= checked
     for name in names:
         importlib.import_module(name)
 
