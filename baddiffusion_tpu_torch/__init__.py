@@ -9,9 +9,11 @@ written by hand for Hopper (``csrc/``), built with nvcc at first use.
 Ported so far: backdoor DDPM sampling on the UNet (``models``, ``schedulers``,
 ``pipelines``, ``io``, ``data.triggers``), with the GroupNorm+SiLU and
 attention kernels (``ops``); the backdoor train step (``attack``,
-``data.poison``, ``training.optim``, ``training.train``); and the trainer
+``data.poison``, ``training.optim``, ``training.train``); the trainer
 around it (``data.datasets``, ``data.prefetch``, ``training.ema``,
-``training.checkpoint``, ``training.trainer``, ``utils``).
+``training.checkpoint``, ``training.trainer``, ``utils``); and the sampler
+zoo (``schedulers``, the SDE-VE and Karras-VE engines in ``pipelines``, the
+scheduler half of ``factory``).
 """
 
 __version__ = "0.1.0"

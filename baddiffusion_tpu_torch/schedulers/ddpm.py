@@ -75,6 +75,9 @@ class DDPMScheduler(ConfigurableScheduler):
     def scale_model_input(self, state: DDPMState, sample: torch.Tensor, step_index=None) -> torch.Tensor:
         return sample
 
+    def step_uses_noise(self, state: DDPMState, step_index: int) -> bool:
+        return int(state.timesteps[step_index]) > 0  # at t = 0 the noise term is zero
+
     def _alpha_prods(self, state: DDPMState, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ᾱ_t, ᾱ_prev) as 0-dim f32 tensors; ᾱ_prev = 1 before the first step."""
         acp = state.schedule.alphas_cumprod

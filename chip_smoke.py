@@ -37,10 +37,11 @@
    poisoning BOX_14 -> CORNER at rate 0.1: warm-up steps, then timed steps;
    then the device time of a step split into forward, backward and optimizer.
 5. Launch counts over each main path's run (the sampling chains of phase 3,
-   the timed train steps of phase 4, the two train_loop runs of phase 6;
-   counters set to 0 just before each and read just after): every
-   GroupNorm+SiLU and attention call must have gone through its kernel, 65
-   K1 and 6 K3 per UNet forward and, in training, 65 K2 per step.
+   the timed train steps of phase 4, the two train_loop runs of phase 6,
+   the zoo's chains of phase 7; counters set to 0 just before each and read
+   just after): every GroupNorm+SiLU and attention call must have gone
+   through its kernel, 65 K1 and 6 K3 per UNet forward and, in training, 65
+   K2 per step.
 6. The trainer path (run after phase 4): train_loop on the scratch UNet at
    bf16 compute with f32 parameters, on DatasetLoader("FAKE", 1024 images,
    32 px, batch 128, seed 0) poisoned BOX_14 -> CORNER at 0.1, with
@@ -57,6 +58,22 @@
    Printed: the loop's ms a step and samples/s beside phase 4's bare step,
    a grid's sampling time, a sync save's and the HF export's time, the
    phase's peak memory.
+
+7. The sampler zoo (run after phase 3): the factory's 13 scheduler names
+   past DDPM (DDIM, DPM-Solver and DPM-Solver++ of orders 1-3, UniPC, PNDM,
+   DEIS, Heun, K-LMS, SDE-VE) and Karras-VE. (a) Each chain with the tests'
+   stand-in denoiser, 0.1*x + 0.05*sin(t/100), 10 steps at [16, 32, 32, 3]
+   f32, on the card against the CPU from the same init and noise (max err
+   <= 1e-4*max|x| + 1e-4). (b) DDIM and DPM-Solver++ O2 on the full-width
+   scratch UNet in f32, 5 steps at B=2, card against CPU (rtol 1e-3, atol
+   1e-3*max|y|). (c) The path: every chain through DiffusionPipeline on the
+   full-width UNet in bf16 at B=16 from noise + trigger (BOX_14), at its
+   factory default length (50 steps; SDE-VE 100, not its 2000: a cut in
+   depth only), under torch.cuda.set_sync_debug_mode("error"), so that no
+   step synchronises; the sample before the clip finite, the images in
+   [0, 1], each chain's UNet forwards as designed. (d) Each chain's ms a
+   step, imgs/s and forwards; a profiled DPM-Solver++ O2 chain's device ms a
+   step and idle share; DPM-Solver++ O2 again at B=128.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its numbers. Any failed check raises, and the script exits
@@ -80,12 +97,12 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from baddiffusion_tpu_torch import ops
+from baddiffusion_tpu_torch import factory, ops
 from baddiffusion_tpu_torch.data import Backdoor, DatasetLoader, trigger_mask
 from baddiffusion_tpu_torch.models import DEFAULT_SCRATCH_CONFIG, UNet2DModel
 from baddiffusion_tpu_torch.ops import _build
-from baddiffusion_tpu_torch.pipelines import DiffusionPipeline
-from baddiffusion_tpu_torch.schedulers import DDPMConfig, DDPMScheduler
+from baddiffusion_tpu_torch.pipelines import DiffusionPipeline, sample_chain
+from baddiffusion_tpu_torch.schedulers import DDPMConfig, DDPMScheduler, KarrasVeScheduler
 from baddiffusion_tpu_torch.training import (
     create_train_state,
     finish_async_saves,
@@ -153,6 +170,14 @@ TRAINER_EPOCHS, TRAINER_RESUME_EPOCHS = 2, 3
 TRAINER_SAMPLE_N = 16
 TRAINER_SAMPLING_STEPS = 50
 GRID_PX = 4 * 32 + 5 * 2  # a 4x4 grid of 32 px images, 2 px borders
+# the sampler zoo: the factory's names past DDPM (phase 3 runs DDPM), and Karras-VE
+_S = factory.DiffuserModelSched
+ZOO_NAMES = (_S.DDIM_SCHED, _S.DPM_SOLVER_PP_O1_SCHED, _S.DPM_SOLVER_O1_SCHED, _S.DPM_SOLVER_PP_O2_SCHED,
+             _S.DPM_SOLVER_O2_SCHED, _S.DPM_SOLVER_PP_O3_SCHED, _S.DPM_SOLVER_O3_SCHED, _S.UNIPC_SCHED, _S.PNDM_SCHED,
+             _S.DEIS_SCHED, _S.HEUN_SCHED, _S.LMSD_SCHED, _S.SCORE_SDE_VE_SCHED, "KARRAS-VE")
+ZOO_STANDIN_SHAPE, ZOO_STANDIN_STEPS = (16, 32, 32, 3), 10
+ZOO_F32_CHAINS, ZOO_F32_STEPS = (_S.DDIM_SCHED, _S.DPM_SOLVER_PP_O2_SCHED), 5
+ZOO_SDE_STEPS = 100  # SDE-VE's default is 2000: a cut in depth only
 # kernel-name fragments -> the layer they belong to, for the device-time breakdown
 KERNEL_GROUPS = (
     ("groupnorm_silu (K1)", ("groupnorm_silu_fwd_kernel",)),
@@ -621,6 +646,173 @@ def phase_slice(dev, smi: str) -> tuple:
     return forwards[0], counts
 
 
+def zoo_scheduler(name: str) -> tuple:
+    """(scheduler, pipeline kind) of a zoo name: the factory's, or Karras-VE's defaults."""
+    if name == "KARRAS-VE":
+        return KarrasVeScheduler(), "karras"
+    make, kind = factory._sched_spec(name)
+    return make(factory.DiffuserModelSched.CLIP_SAMPLE_DEFAULT), kind
+
+
+def zoo_steps(name: str, kind: str) -> int:
+    return ZOO_SDE_STEPS if kind == "sde" else factory.PIPELINE_DEFAULT_STEPS[kind]
+
+
+def zoo_forwards(scheduler, kind: str, n: int) -> tuple:
+    """(scheduler steps, UNet forwards) of an n-step chain, as each engine is
+    designed: one forward a step for the generic chain (len(timesteps):
+    n, PNDM's PRK and PLMS steps, Heun's 2n - 1); SDE-VE correct_steps + 1
+    a step; Karras-VE two a step, one on the last (σ_prev = 0)."""
+    steps = len(scheduler.set_timesteps(scheduler.create_state(), n).timesteps)
+    if kind == "sde":
+        return steps, steps * (scheduler.config.correct_steps + 1)
+    if kind == "karras":
+        return steps, 2 * steps - 1
+    return steps, steps
+
+
+def standin(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The tests' deterministic stand-in denoiser, per sample."""
+    return 0.1 * x + 0.05 * torch.sin(t.float() / 100.0).view(-1, 1, 1, 1)
+
+
+def phase_zoo(dev, smi: str) -> tuple:
+    """Phase 7: the zoo's scheduler arithmetic and the f32 UNet chains on the
+    card against the CPU, then every chain on the full-width UNet in bf16 at
+    B=16 with the launch counters set to 0 just before and read just after,
+    each step under the sync guard; then the numbers. Returns (UNet
+    forwards, the launch counts)."""
+    print(f"-- the sampler zoo: {len(ZOO_NAMES)} chains ({', '.join(ZOO_NAMES)})")
+    phase_t0 = time.perf_counter()
+    gen_cpu = torch.Generator().manual_seed(70)
+
+    # (a) the scheduler arithmetic: stand-in chains, card against CPU, same init and noise
+    init = torch.randn(ZOO_STANDIN_SHAPE, generator=gen_cpu)
+    noise = [torch.randn(ZOO_STANDIN_SHAPE, generator=gen_cpu) for _ in range(4 * ZOO_STANDIN_STEPS)]
+    noise_card = [z.to(dev) for z in noise]
+    worst = 0.0
+    for name in ZOO_NAMES:
+        out = {}
+        for device, source in (("cpu", noise), ("cuda", noise_card)):
+            scheduler, _ = zoo_scheduler(name)
+            state = scheduler.set_timesteps(scheduler.create_state(), ZOO_STANDIN_STEPS)
+            out[device], _ = sample_chain(scheduler, state, standin, init.to(device), noise_source=source.__getitem__)
+        ref, got = out["cpu"], out["cuda"].cpu()
+        scale = ref.abs().max().item()
+        e = max_err(got, ref)
+        check(bool(torch.isfinite(got).all()) and e <= 1e-4 * scale + 1e-4,
+              f"zoo {name} stand-in chain card vs CPU: max err {e:.3g} (max|x| {scale:.3g})")
+        worst = max(worst, e / (1e-4 * scale + 1e-4))
+        print(f"   (a) {name:24s} stand-in {ZOO_STANDIN_STEPS} steps {list(ZOO_STANDIN_SHAPE)} f32, card vs CPU: "
+              f"max err {e:.3g}, max|x| {scale:.4g}")
+    print(f"   (a) every stand-in chain within max err <= 1e-4*max|x| + 1e-4 (worst at {worst:.3f} of its bound); "
+          f"{time.perf_counter() - phase_t0:.1f} s")
+
+    # (b) the full-width UNet in f32: card against CPU
+    unet = UNet2DModel(DEFAULT_SCRATCH_CONFIG, generator=torch.Generator().manual_seed(0))
+    cpu_unet = UNet2DModel(DEFAULT_SCRATCH_CONFIG, device="cpu")
+    cpu_unet.load_state_dict(unet.state_dict())
+    x = torch.randn(2, 32, 32, 3, generator=gen_cpu)
+    for name in ZOO_F32_CHAINS:
+        out = {}
+        for device, model in (("cpu", cpu_unet), ("cuda", unet)):
+            scheduler, kind = zoo_scheduler(name)
+            pipe = factory._make_get_pipeline(model, kind, False)(scheduler, device=device)
+            out[device] = pipe(init=x, num_inference_steps=ZOO_F32_STEPS, output_type="pt").sample.cpu()
+        ref, got = out["cpu"], out["cuda"]
+        scale = ref.abs().max().item()
+        e = max_err(got, ref)
+        check(torch.allclose(got, ref, rtol=1e-3, atol=1e-3 * scale),
+              f"zoo {name} f32 UNet chain card vs CPU: max err {e:.3g} (max|y| {scale:.3g})")
+        print(f"   (b) {name:24s} full-width UNet f32, {ZOO_F32_STEPS} steps B=2, card vs CPU: max err {e:.3g}, "
+              f"max|y| {scale:.4g} (rtol 1e-3, atol 1e-3*max|y|)")
+    del cpu_unet
+    print(f"   (b) done at {time.perf_counter() - phase_t0:.1f} s into the phase")
+
+    # (c) the path: bf16 chains at B=16 from noise + trigger, counted, each under the sync guard
+    gen = torch.Generator(dev).manual_seed(71)
+    trigger = torch.from_numpy(Backdoor().get_trigger("BOX_14", 3, 32)).to(dev)
+    init = torch.randn(SAMPLE_BATCH, 32, 32, 3, generator=gen, device=dev) + trigger[None]
+    forwards = [0]
+
+    def count_forward(module, args):
+        if isinstance(module, UNet2DModel) and args[0].is_cuda:
+            forwards[0] += 1
+
+    def pipeline(name):
+        scheduler, kind = zoo_scheduler(name)
+        return factory._make_get_pipeline(unet, kind, False)(scheduler, compute_dtype=torch.bfloat16), kind
+
+    pipeline(_S.DDIM_SCHED)[0](init=init, generator=gen, num_inference_steps=2)  # warm-up: bf16 algorithms
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the guard is live: it refuses a read-back
+    try:
+        init.sum().item()
+        caught = False
+    except RuntimeError:
+        caught = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(caught, "zoo: torch.cuda.set_sync_debug_mode('error') let a .item() through")
+    rows = []
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(count_forward)
+    ops.reset_launch_counts()
+    try:
+        for name in ZOO_NAMES:
+            pipe, kind = pipeline(name)
+            n = zoo_steps(name, kind)
+            steps, want = zoo_forwards(pipe.scheduler, kind, n)
+            before = forwards[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = pipe(init=init, generator=gen, num_inference_steps=n, output_type="pt")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = forwards[0] - before
+            peak = out.sample.abs().max().item()
+            images = out.images
+            check(got == want, f"zoo {name}: {got} UNet forwards, designed {want}")
+            check(bool(torch.isfinite(out.sample).all()), f"zoo {name}: the sample before the clip is not finite")
+            check(images.shape == (SAMPLE_BATCH, 32, 32, 3) and images.min().item() >= 0.0
+                  and images.max().item() <= 1.0, f"zoo {name}: images not in [0, 1]")
+            rows.append((name, n, steps, got, dt))
+            print(f"   (c) {name:24s} {n:3d} steps ({steps} scheduler steps), {got:3d} forwards, bf16 B={SAMPLE_BATCH}: "
+                  f"{dt:.3f} s, {dt / steps * 1e3:.3f} ms/step, {dt / got * 1e3:.3f} ms/forward, "
+                  f"{SAMPLE_BATCH / dt:.3f} imgs/s; max|x| before the clip {peak:.4g}, mean pixel "
+                  f"{images.mean().item():.4f}; no step synchronised")
+
+        # (d) a profiled DPM-Solver++ O2 chain, and the same chain at B=128
+        pipe, kind = pipeline(_S.DPM_SOLVER_PP_O2_SCHED)
+        n = zoo_steps(_S.DPM_SOLVER_PP_O2_SCHED, kind)
+        wall, dev_ms, kern, host = device_profile(
+            lambda: pipe(init=init, generator=gen, num_inference_steps=n, output_type="pt"), reps=1)
+        print(f"   (d) profiled DPM-Solver++ O2 chain, {n} steps bf16 B={SAMPLE_BATCH}: {wall / n:.3f} ms/step wall, "
+              f"{dev_ms / n:.3f} ms/step device kernels, device idle {100 * (1 - dev_ms / wall):.1f}% on {smi}")
+        print(f"     device time per step: {breakdown(kern, n)}")
+        print(f"     host self time per step (profiled): all ops {sum(host.values()) / n:.3f} ms; "
+              f"top: {top_host_ops(host, n)}")
+        big = torch.randn(BATCH, 32, 32, 3, generator=gen, device=dev) + trigger[None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe(init=big, generator=gen, num_inference_steps=n, output_type="pt")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(bool(torch.isfinite(out.sample).all()), "zoo DPM-Solver++ O2 at B=128: sample not finite")
+        print(f"   (d) DPM-Solver++ O2 {n} steps bf16 B={BATCH}: {dt:.3f} s, {dt / n * 1e3:.3f} ms/step, "
+              f"{BATCH / dt:.2f} imgs/s on {smi}")
+    finally:
+        hook.remove()
+    counts = ops.launch_counts()
+    total = sum(r[3] for r in rows)
+    print(f"   (c) {len(rows)} chains, {total} forwards in {sum(r[4] for r in rows):.2f} s; phase 7 took "
+          f"{time.perf_counter() - phase_t0:.1f} s on {smi}")
+    return forwards[0], counts
+
+
 def seeded_scratch_unet(device, dtype=torch.float32) -> UNet2DModel:
     """The full-width scratch UNet from seed 0, with its biases and GroupNorm
     affines moved off 0 and 1 (from seed 1) so their gradients count."""
@@ -968,6 +1160,7 @@ def main() -> int:
     gen = torch.Generator(dev).manual_seed(0)
     kernels = [phase_groupnorm(dev, gen), phase_groupnorm_backward(dev, gen), phase_attention(dev, gen)]
     forwards, sampling = phase_slice(dev, smi)
+    zoo_fwd, zoo = phase_zoo(dev, smi)
     steps, training, bare_ms = phase_train(dev, smi)
     loop_steps, loop_sampled, trainer_counts = phase_trainer(dev, smi, bare_ms)
 
@@ -975,6 +1168,9 @@ def main() -> int:
         ("sampling", f"{forwards} UNet forwards", sampling,
          {"groupnorm_silu": GN_PER_FORWARD * forwards, "groupnorm_silu_backward": 0,
           "attention": ATTN_PER_FORWARD * forwards}),
+        ("sampler zoo", f"{zoo_fwd} UNet forwards", zoo,
+         {"groupnorm_silu": GN_PER_FORWARD * zoo_fwd, "groupnorm_silu_backward": 0,
+          "attention": ATTN_PER_FORWARD * zoo_fwd}),
         ("training", f"{steps} train steps", training,
          {"groupnorm_silu": GN_PER_FORWARD * steps, "groupnorm_silu_backward": GN_PER_FORWARD * steps,
           "attention": ATTN_PER_FORWARD * steps}),
@@ -987,7 +1183,7 @@ def main() -> int:
               + ", ".join(f"{k}={v}" for k, v in counts.items()))
         check(counts == want and counts["groupnorm_silu"] > 0, f"{path} launches {counts}, want {want}")
     for k in kernels:
-        k["launches"] = sampling[k["name"]] + training[k["name"]] + trainer_counts[k["name"]]
+        k["launches"] = sampling[k["name"]] + zoo[k["name"]] + training[k["name"]] + trainer_counts[k["name"]]
     print(f"chip_smoke: every check passed in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

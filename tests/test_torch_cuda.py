@@ -2,8 +2,9 @@
 pack width and lane layout, misaligned and partial-tile inputs, each launch
 plan, the wrappers' refusals, the GroupNorm+SiLU backward (K2) and its
 bitwise-repeatable dx, dγ and dβ, a small UNet on the card against the
-CPU's plain path (forward, one train step, two steps of ``train_loop``), and
-``device_prefetch``'s side-stream copies.
+CPU's plain path (forward, one train step, two steps of ``train_loop``, a
+DPM-Solver++ chain), ``device_prefetch``'s side-stream copies, and each
+scheduler of the zoo with a stand-in denoiser on the card against the CPU.
 
 These tests need an NVIDIA GPU and skip without one. Run them on the card
 without the JAX-side conftest (this file imports no JAX):
@@ -15,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from baddiffusion_tpu_torch import ops
+from baddiffusion_tpu_torch import factory, ops
 from baddiffusion_tpu_torch.models import UNet2DConfig, UNet2DModel
+from baddiffusion_tpu_torch.pipelines import sample_chain
+from baddiffusion_tpu_torch.schedulers import KarrasVeScheduler
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(atol=1e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
@@ -543,3 +546,64 @@ def test_train_loop_on_the_card_matches_the_cpu(dev, tmp_path):
     forwards = 2 + 2 * 2
     assert c_card == {"groupnorm_silu": SMALL_GN * forwards, "groupnorm_silu_backward": SMALL_GN * 2,
                       "attention": SMALL_ATTN * forwards}
+
+
+ZOO = [v for k, v in sorted(vars(factory.DiffuserModelSched).items()) if k.endswith("_SCHED") and k != "LDM_SCHED"]
+
+
+def _zoo_scheduler(name):
+    if name == "KARRAS-VE":
+        return KarrasVeScheduler()
+    return factory._sched_spec(name)[0](False)
+
+
+@pytest.mark.parametrize("name", ZOO + ["KARRAS-VE"])
+def test_zoo_standin_chain_on_the_card_matches_the_cpu(dev, name):
+    """Each scheduler's 10-step chain with the stand-in denoiser, from the
+    same init and noise, on the card (under the sync guard: no step
+    synchronises) and on the CPU: max err <= 1e-4·max|x| + 1e-4."""
+    g = torch.Generator().manual_seed(3)
+    init = torch.randn(4, 16, 16, 3, generator=g)
+    noise = [torch.randn(4, 16, 16, 3, generator=g) for _ in range(20)]
+    out = {}
+    for device in ("cpu", "cuda"):
+        source = [z.to(device) for z in noise]
+        sched = _zoo_scheduler(name)
+        state = sched.set_timesteps(sched.create_state(), 10)
+        x0 = init.to(device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if device == "cuda" else 0)
+        try:
+            out[device], _ = sample_chain(sched, state, lambda x, t: 0.1 * x + 0.05 * torch.sin(t.float() / 100.0)
+                                          .view(-1, 1, 1, 1), x0, noise_source=source.__getitem__)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    ref, got = out["cpu"], out["cuda"].cpu()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item() + 1e-4
+
+
+def test_small_unet_dpm_solver_chain_on_the_card_matches_the_cpu(dev):
+    """A 10-step DPM-Solver++ O2 chain through DiffusionPipeline on the
+    small UNet in f32, card (under the sync guard) against CPU, with the
+    kernels' launches counted."""
+    cpu = UNet2DModel(SMALL, device="cpu")
+    card = UNet2DModel(SMALL)
+    card.load_state_dict(cpu.state_dict())
+    init = torch.randn(2, 16, 16, 3, generator=torch.Generator().manual_seed(4))
+    make = factory._make_get_pipeline
+    want = make(cpu, "solver", False)(factory._sched_spec("DPM_SOLVER_PP_O2-SCHED")[0](False), device="cpu")(
+        init=init, num_inference_steps=10, output_type="pt").sample
+    pipe = make(card, "solver", False)(factory._sched_spec("DPM_SOLVER_PP_O2-SCHED")[0](False))
+    init_card = init.to(dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pipe(init=init_card, num_inference_steps=10, generator=torch.Generator(dev), output_type="pt")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.launch_counts() == {"groupnorm_silu": SMALL_GN * 10, "groupnorm_silu_backward": 0,
+                                   "attention": SMALL_ATTN * 10}
+    got = out.sample.cpu()
+    torch.testing.assert_close(got, want, atol=1e-3 * want.abs().max().item(), rtol=1e-3)

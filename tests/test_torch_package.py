@@ -53,16 +53,33 @@ def test_imports_nothing_of_jax_or_the_jax_package(path):
 # the trainer's modules, which the import checks above and below must reach
 TRAINER_MODULES = ("utils.logging", "utils.image", "utils.samples", "utils.trackers", "data.datasets",
                    "data.prefetch", "training.ema", "training.checkpoint", "training.trainer")
+# the sampler zoo's modules, likewise
+ZOO_MODULES = ("schedulers.ddim", "schedulers.dpmsolver", "schedulers.deis", "schedulers.unipc", "schedulers.pndm",
+               "schedulers.heun", "schedulers.lms", "schedulers.sde_ve", "schedulers.karras_ve", "pipelines.sampler",
+               "pipelines.pipeline", "factory")
 
 
 def test_every_module_imports_without_nvcc_or_a_gpu():
     names = [m.name for m in pkgutil.walk_packages([PACKAGE_DIR], prefix="baddiffusion_tpu_torch.")]
     assert "baddiffusion_tpu_torch.ops._build" in names and "baddiffusion_tpu_torch.pipelines.pipeline" in names
-    assert {f"baddiffusion_tpu_torch.{m}" for m in TRAINER_MODULES} <= set(names)
-    checked = {os.path.relpath(p, PACKAGE_DIR) for p in _sources()}
-    assert {m.replace(".", os.sep) + ".py" for m in TRAINER_MODULES} <= checked
+    for modules in (TRAINER_MODULES, ZOO_MODULES):
+        assert {f"baddiffusion_tpu_torch.{m}" for m in modules} <= set(names)
+        checked = {os.path.relpath(p, PACKAGE_DIR) for p in _sources()}
+        assert {m.replace(".", os.sep) + ".py" for m in modules} <= checked
     for name in names:
         importlib.import_module(name)
+
+
+def test_scipy_is_imported_only_where_the_lms_table_is_built():
+    """K-LMS builds its coefficient table with scipy, imported inside that
+    function; no module of the port imports it at the top."""
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
+        assert not any(m.split(".")[0] == "scipy" for m in names), f"{os.path.relpath(path, ROOT)} imports scipy"
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

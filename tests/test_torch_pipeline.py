@@ -140,8 +140,9 @@ def test_generator_sampling_is_seeded_and_batch_sampling_splits(jax_pipe_dir):
     b = pipe(batch_size=3, generator=torch.Generator().manual_seed(1)).images
     np.testing.assert_array_equal(a, b)
     assert a.shape == (3, 8, 8, 3) and a.min() >= 0.0 and a.max() <= 1.0
-    out = batch_sampling(5, pipe, max_batch_n=2, generator=torch.Generator().manual_seed(2))
+    out = batch_sampling(5, pipe, max_batch_n=2, seed=2)
     assert out.shape == (5, 8, 8, 3) and np.isfinite(out).all()
+    np.testing.assert_array_equal(out, batch_sampling(5, pipe, max_batch_n=2, seed=2))
 
 
 def test_port_round_trip_and_bf16_compute(jax_pipe_dir, tmp_path):

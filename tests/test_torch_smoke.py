@@ -54,3 +54,32 @@ def test_device_profile_times_with_cuda_events_when_the_profiler_records_nothing
     # the readers of its result still work: the window lands in "other"
     assert "other (elementwise, copies, cat, plain norms) 2.5000 ms (100.0%)" in smoke.breakdown(kernels)
     assert smoke.top_host_ops(host, 1) == ""
+
+
+def test_zoo_names_and_designed_forwards_match_a_cpu_chain():
+    """Phase 7's chains: the factory's names past DDPM, and Karras-VE; each
+    engine makes the UNet forwards ``zoo_forwards`` designs (counted here
+    with a stand-in model on the CPU, at a short length)."""
+    import torch
+
+    from baddiffusion_tpu_torch import factory
+    from baddiffusion_tpu_torch.pipelines import sample_chain
+
+    smoke = _load_smoke()
+    names = {v for k, v in vars(factory.DiffuserModelSched).items() if k.endswith("_SCHED")}
+    names -= {factory.DiffuserModelSched.DDPM_SCHED, factory.DiffuserModelSched.LDM_SCHED}
+    assert set(smoke.ZOO_NAMES) == names | {"KARRAS-VE"} and len(smoke.ZOO_NAMES) == 14
+    for name in smoke.ZOO_NAMES:
+        scheduler, kind = smoke.zoo_scheduler(name)
+        steps, want = smoke.zoo_forwards(scheduler, kind, 6)
+        calls = []
+
+        def model(x, t):
+            calls.append(t)
+            return smoke.standin(x, t)
+
+        state = scheduler.set_timesteps(scheduler.create_state(), 6)
+        init = torch.randn(2, 4, 4, 3, generator=torch.Generator().manual_seed(0))
+        sample, _ = sample_chain(scheduler, state, model, init, generator=torch.Generator().manual_seed(1))
+        assert len(calls) == want and torch.isfinite(sample).all(), name
+        assert steps == len(state.timesteps)
