@@ -13,7 +13,10 @@ attention kernels (``ops``); the backdoor train step (``attack``,
 around it (``data.datasets``, ``data.prefetch``, ``training.ema``,
 ``training.checkpoint``, ``training.trainer``, ``utils``); and the sampler
 zoo (``schedulers``, the SDE-VE and Karras-VE engines in ``pipelines``, the
-scheduler half of ``factory``).
+scheduler half of ``factory``); and what a user runs: ``config`` and ``cli``
+(train / resume / sampling / measure / train+measure), the model half of
+``factory``, the measure (``metrics``, ``models.inception``) and the ANP
+defense (``defense``, ``anp_cli``).
 """
 
 __version__ = "0.1.0"

@@ -10,6 +10,10 @@ HF-0.16 torch state dict that ``UNet2DModel`` loads with ``strict=True``:
   - conv ``kernel`` [H,W,I,O] → ``weight`` [O,I,H,W]
   - dense ``kernel`` [I,O] → ``weight`` [O,I]
   - norm ``scale`` → ``weight``; ``embedding`` → ``weight``
+
+``perturb_from_jax`` carries an ANP perturbation (``defense/anp.py``) across
+by the same path rule: the JAX tree ``{conv path: {gamma, beta}}`` becomes
+``{state-dict module name: {"gamma", "beta"}}``.
 """
 
 from __future__ import annotations
@@ -30,6 +34,12 @@ SAFETENSORS_NAME = "diffusion_pytorch_model.safetensors"
 _CONTAINERS = {"down_blocks", "up_blocks", "resnets", "attentions", "downsamplers", "upsamplers"}
 
 
+def _module_name(name: str) -> str:
+    """One pytree path element as a module path element."""
+    base, _, index = name.rpartition("_")
+    return f"{base}.{index}" if index.isdigit() and base in _CONTAINERS else name
+
+
 def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Nested JAX/flax params (numpy arrays) → flat HF torch state dict."""
     out: Dict[str, torch.Tensor] = {}
@@ -37,8 +47,7 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     def walk(node, prefix):
         for name, value in node.items():
             if isinstance(value, dict):
-                base, _, index = name.rpartition("_")
-                walk(value, prefix + [f"{base}.{index}" if index.isdigit() and base in _CONTAINERS else name])
+                walk(value, prefix + [_module_name(name)])
                 continue
             value = np.asarray(value)
             leaf = name
@@ -50,6 +59,24 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             out[".".join(prefix + [leaf])] = torch.from_numpy(value.copy())  # contiguous and writable
 
     walk(params, [])
+    return out
+
+
+def perturb_from_jax(perturb: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX ANP perturbation tree (numpy arrays) → ``{conv module name:
+    {"gamma": [O], "beta": [O]}}`` (``beta`` only where the JAX tree has
+    it), in the port's ``defense.anp`` layout."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def walk(node, prefix):
+        leaves = {k: v for k, v in node.items() if not isinstance(v, dict)}
+        if leaves:
+            out[".".join(prefix)] = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in leaves.items()}
+        for name, value in node.items():
+            if isinstance(value, dict):
+                walk(value, prefix + [_module_name(name)])
+
+    walk(perturb, [])
     return out
 
 
@@ -83,10 +110,12 @@ def save_unet(unet: UNet2DModel, save_directory: str, use_safetensors: bool = Tr
         torch.save(sd, os.path.join(save_directory, WEIGHTS_NAME))
 
 
-def load_unet(path: str, subfolder: Optional[str] = None, device: DeviceLike = None) -> UNet2DModel:
-    """Load an HF-layout UNet2DModel dir onto ``device`` (CUDA by default)."""
+def load_unet(path: str, subfolder: Optional[str] = None, device: DeviceLike = None,
+              dtype: torch.dtype = torch.float32) -> UNet2DModel:
+    """Load an HF-layout UNet2DModel dir onto ``device`` (CUDA by default),
+    computing in ``dtype`` (its parameters stay f32)."""
     if subfolder:
         path = os.path.join(path, subfolder)
-    model = UNet2DModel(UNet2DConfig.load(path), device=device)
+    model = UNet2DModel(UNet2DConfig.load(path), device=device, dtype=dtype)
     model.load_state_dict(load_torch_state_dict(path), strict=True)
     return model

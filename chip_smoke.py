@@ -38,10 +38,10 @@
    then the device time of a step split into forward, backward and optimizer.
 5. Launch counts over each main path's run (the sampling chains of phase 3,
    the timed train steps of phase 4, the two train_loop runs of phase 6,
-   the zoo's chains of phase 7; counters set to 0 just before each and read
-   just after): every GroupNorm+SiLU and attention call must have gone
-   through its kernel, 65 K1 and 6 K3 per UNet forward and, in training, 65
-   K2 per step.
+   the zoo's chains of phase 7, the CLI and ANP runs of phase 8; counters
+   set to 0 just before each and read just after): every GroupNorm+SiLU and
+   attention call must have gone through its kernel, 65 K1 and 6 K3 per UNet
+   forward and, in training and ANP, 65 K2 per step.
 6. The trainer path (run after phase 4): train_loop on the scratch UNet at
    bf16 compute with f32 parameters, on DatasetLoader("FAKE", 1024 images,
    32 px, batch 128, seed 0) poisoned BOX_14 -> CORNER at 0.1, with
@@ -75,6 +75,33 @@
    step, imgs/s and forwards; a profiled DPM-Solver++ O2 chain's device ms a
    step and idle share; DPM-Solver++ O2 again at B=128.
 
+8. The command lines and the measure (run after phase 6), on the full-width
+   scratch UNet at 32 px, in a scratch directory (deleted after) that is
+   also the working directory, so the cwd-relative real-image dump lands
+   there. (a) ``cli.main`` --mode train+measure: FAKE 1024 images, batch
+   128, 1 epoch (8 steps), BOX_14 -> CORNER at 0.1, DDIM-SCHED, grids of 50
+   steps, a measure of 256 clean and 256 backdoor images in chunks of 128
+   with 50-step DDIM chains, and ``-isame`` so that epoch 0 has its export
+   for (b); checked: the run dir's files, data.json's step, 256 + 256
+   PNGs, score.json's FID_proxy, MSE and SSIM finite, SSIM in [-1, 1].
+   (b) --mode sampling on that run dir (the grids), then --mode measure
+   --sample_ep 0 (the _ep0 keys; epoch 0's export is the final weights, so
+   its scores match the bare ones). (c) ``anp_cli.main`` on that run dir:
+   1 epoch at batch 128 (8 steps), measure 128 images, 50-step chains,
+   budget 4.0; checked: every logged loss finite, every γ/β within ±4 after
+   every step, score.json's MSE/SSIM with *_best, the export reloaded
+   through ``factory.get_trained`` and finite. (d) Card against CPU: mse,
+   ssim, the proxy extractor (on 256 images) and FIDInceptionV3 (seeded
+   random weights, f32, [16, 32, 32, 3] -> 299²), rtol 1e-4 with atol
+   1e-4*max|y| for the activations; the FID of two seeded 256-image sets
+   (proxy), rtol 1e-3. (e) The CLI's ms a train step and the ANP step's
+   (CUDA events between step starts), the measure chains' imgs/s, the
+   Inception's imgs/s at batch 128, the phase's wall time and peak memory.
+   Cuts, in depth only: the measure runs 50 DDIM steps, not the
+   reference's 1000 DDPM steps (phase 3 runs the 1000-step chain), and 256
+   images, not 2048; the ANP runs 1 epoch and 50-step chains, not 1000.
+   The f32 chains run without TF32 (phase 1's setting).
+
 The last line is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its numbers. Any failed check raises, and the script exits
 non-zero. Without CUDA it exits non-zero and prints no result.
@@ -97,9 +124,12 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from baddiffusion_tpu_torch import factory, ops
+from baddiffusion_tpu_torch import anp_cli, cli, factory, ops
 from baddiffusion_tpu_torch.data import Backdoor, DatasetLoader, trigger_mask
+from baddiffusion_tpu_torch.defense import perturb_leaves
+from baddiffusion_tpu_torch.metrics import fid, mse, proxy_extractor, ssim
 from baddiffusion_tpu_torch.models import DEFAULT_SCRATCH_CONFIG, UNet2DModel
+from baddiffusion_tpu_torch.models.inception import FIDInceptionV3
 from baddiffusion_tpu_torch.ops import _build
 from baddiffusion_tpu_torch.pipelines import DiffusionPipeline, sample_chain
 from baddiffusion_tpu_torch.schedulers import DDPMConfig, DDPMScheduler, KarrasVeScheduler
@@ -178,6 +208,12 @@ ZOO_NAMES = (_S.DDIM_SCHED, _S.DPM_SOLVER_PP_O1_SCHED, _S.DPM_SOLVER_O1_SCHED, _
 ZOO_STANDIN_SHAPE, ZOO_STANDIN_STEPS = (16, 32, 32, 3), 10
 ZOO_F32_CHAINS, ZOO_F32_STEPS = (_S.DDIM_SCHED, _S.DPM_SOLVER_PP_O2_SCHED), 5
 ZOO_SDE_STEPS = 100  # SDE-VE's default is 2000: a cut in depth only
+# phase 8: the CLI's run, its measure and the ANP run, cut in depth
+CLI_FAKE_SIZE = 1024
+CLI_STEPS = 50  # DDIM steps of the grids and the measure (the reference measures with 1000 DDPM steps)
+CLI_MEASURE_N, CLI_EVAL_BATCH = 256, 128
+ANP_MEASURE_N, ANP_BUDGET = 128, 4.0
+INCEPTION_CHECK_SHAPE, INCEPTION_BATCH = (16, 32, 32, 3), 128
 # kernel-name fragments -> the layer they belong to, for the device-time breakdown
 KERNEL_GROUPS = (
     ("groupnorm_silu (K1)", ("groupnorm_silu_fwd_kernel",)),
@@ -966,6 +1002,11 @@ def read_json(path: str):
         return json.load(f)
 
 
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
 def check_grids(run_dir: str, epochs) -> None:
     """Each epoch's clean and backdoor grid and first-frame grid: a
     GRID_PX x GRID_PX RGB PNG with finite, varied pixels."""
@@ -1091,8 +1132,7 @@ def phase_trainer(dev, smi: str, bare_ms: float) -> tuple:
         saved = read_json(os.path.join(run_dir, "data.json"))
         check(saved == {"epoch": TRAINER_RESUME_EPOCHS - 1, "step": end2, "ckpt": "ckpt"},
               f"trainer: data.json after the resume {saved}")
-        with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
+        records = read_jsonl(os.path.join(run_dir, "logs", "metrics.jsonl"))
         losses = [r["loss"] for r in records]
         check([r["_step"] for r in records] == list(range(steps1)) + list(range(start_step, end2)),
               f"trainer: metrics.jsonl steps {[r['_step'] for r in records]}")
@@ -1150,6 +1190,246 @@ def phase_trainer(dev, smi: str, bare_ms: float) -> tuple:
     return end1 + steps2, sampled1 + sampled2, counts
 
 
+class TimedStep:
+    """A train or ANP step that records CUDA events around each call (and,
+    for ANP, the largest |γ|, |β| after it); the step itself is unchanged."""
+
+    def __init__(self, step, records: list, anp: bool = False):
+        self.step, self.records, self.anp = step, records, anp
+
+    def __call__(self, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.step(*args, **kwargs)
+        end.record()
+        peak = torch.stack([t.abs().max() for t in perturb_leaves(out[0])]).max() if self.anp else None
+        self.records.append((start, end, peak))
+        return out
+
+
+def start_gaps_ms(records) -> list:
+    """ms between consecutive step starts on the device's clock: a step's
+    share of the loop, host and device alike."""
+    return [a[0].elapsed_time(b[0]) for a, b in zip(records, records[1:])]
+
+
+def seeded_inception(seed: int = 80) -> FIDInceptionV3:
+    """FIDInceptionV3 on the CPU with seeded random weights and BatchNorm
+    statistics (the tests' oracle's scheme): He-normal convs, γ ~ N(1,
+    0.02), β and μ ~ N(0, 0.02), σ² ~ U(0.8, 1.2)."""
+    g = torch.Generator().manual_seed(seed)
+    model = FIDInceptionV3().eval()
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("conv.weight"):
+                t.copy_(torch.randn(t.shape, generator=g) * (2.0 / t[0].numel()) ** 0.5)
+            elif name.endswith("bn.weight"):
+                t.copy_(1.0 + 0.02 * torch.randn(t.shape, generator=g))
+            elif name.endswith(("bn.bias", "bn.running_mean")):
+                t.copy_(0.02 * torch.randn(t.shape, generator=g))
+            elif name.endswith("bn.running_var"):
+                t.copy_(0.8 + 0.4 * torch.rand(t.shape, generator=g))
+    return model
+
+
+def check_activations(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    scale = want.abs().max().item()
+    e = max_err(got, want)
+    check(got.shape == want.shape and torch.allclose(got.float(), want.float(), rtol=1e-4, atol=1e-4 * scale),
+          f"{label} card vs CPU: max err {e:.3g} (max|y| {scale:.3g})")
+    print(f"   (d) {label} card vs CPU: max err {e:.3g}, max|y| {scale:.4g} (rtol 1e-4, atol 1e-4*max|y|)")
+    return e
+
+
+def count_pngs(path: str) -> int:
+    return len([n for n in os.listdir(path) if n.endswith(".png")])
+
+
+def phase_cli(dev, smi: str) -> tuple:
+    """Phase 8: the CLI's train+measure, sampling and measure modes, then
+    anp_cli, on the full-width UNet, with the launch counters set to 0 just
+    before (a) and read just after (c); then the metrics card against CPU
+    and the numbers. Returns (train and ANP steps, sampling forwards, the
+    launch counts)."""
+    print(f"-- the CLI and anp_cli: cli train+measure (FAKE {CLI_FAKE_SIZE}, batch {BATCH}, 1 epoch, DDIM, measure "
+          f"{CLI_MEASURE_N} + {CLI_MEASURE_N} images at {CLI_STEPS} steps), sampling, measure --sample_ep 0, "
+          f"anp_cli (1 epoch, measure {ANP_MEASURE_N}); the scratch UNet at full width. {CLI_STEPS}-step DDIM "
+          "chains, not the reference's 1000 DDPM steps (phase 3 runs those): a cut in depth only")
+    os.environ["WANDB_MODE"] = "disabled"  # no network here; the checks read the JSONL streams
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    os.makedirs(TMP_BASE, exist_ok=True)
+    root = tempfile.mkdtemp(dir=TMP_BASE)
+    cwd = os.getcwd()
+    calls = []  # (rows, steps, seconds) of each pipeline call
+    train_records, anp_records = [], []
+    forwards = [0]
+
+    class TimedPipeline(DiffusionPipeline):
+        def __call__(self, batch_size=1, init=None, num_inference_steps=None, **kwargs):
+            t0 = time.perf_counter()
+            out = super().__call__(batch_size=batch_size, init=init, num_inference_steps=num_inference_steps,
+                                   **kwargs)  # host arrays: the device is done
+            rows = batch_size if init is None else len(init)
+            calls.append((rows, num_inference_steps or self.default_inference_steps, time.perf_counter() - t0))
+            return out
+
+    def count_forward(module, args):
+        if isinstance(module, UNet2DModel) and args[0].is_cuda:
+            forwards[0] += 1
+
+    try:
+        saved = (factory.DiffusionPipeline, cli.make_train_step, anp_cli.make_anp_step)
+        factory.DiffusionPipeline = TimedPipeline
+        cli.make_train_step = lambda *a, **k: TimedStep(saved[1](*a, **k), train_records)
+        anp_cli.make_anp_step = lambda *a, **k: TimedStep(saved[2](*a, **k), anp_records, anp=True)
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(count_forward)
+        run = os.path.join(root, "res_None_FAKE_ep1_c1.0_p0.1_BOX_14-CORNER")
+        try:
+            os.chdir(root)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            # (a) train+measure
+            t0 = time.perf_counter()
+            cli.main(["--mode", "train+measure", "--dataset", "FAKE", "--fake_size", str(CLI_FAKE_SIZE),
+                      "--batch", str(BATCH), "--epoch", "1", "--trigger", "BOX_14", "--target", "CORNER",
+                      "--poison_rate", str(POISON_RATE), "--sampling_steps", str(CLI_STEPS), "--sched", "DDIM-SCHED",
+                      "--measure_sample_n", str(CLI_MEASURE_N), "--eval_max_batch", str(CLI_EVAL_BATCH),
+                      "--measure_steps", str(CLI_STEPS), "--gpu", "0", "-o", "-isame", "--result", root])
+            wall_a = time.perf_counter() - t0
+            for name in ("args.json", "config.json", "data.json", "model_index.json", "measure.json"):
+                check(os.path.exists(os.path.join(run, name)), f"cli (a): {name} missing")
+            data = read_json(os.path.join(run, "data.json"))
+            train_steps = CLI_FAKE_SIZE // BATCH
+            check(data["step"] == train_steps == len(train_records), f"cli (a): data.json {data}")
+            n_png = {sub: count_pngs(os.path.join(run, "measure", sub)) for sub in ("clean_noclip", "backdoor_noclip")}
+            n_png["real"] = count_pngs(os.path.join(root, "measure", "FAKE"))
+            check(set(n_png.values()) == {CLI_MEASURE_N}, f"cli (a): measure PNGs {n_png}")
+            score = read_json(os.path.join(run, "score.json"))
+            check(set(score) == {"FID_proxy_noclip", "MSE_noclip", "SSIM_noclip"}
+                  and all(np.isfinite(v) for v in score.values()) and -1.0 <= score["SSIM_noclip"] <= 1.0,
+                  f"cli (a): score.json {score}")
+            losses = [r["loss"] for r in read_jsonl(os.path.join(run, "logs", "metrics.jsonl")) if "loss" in r]
+            check(bool(losses) and bool(np.isfinite(losses).all()), f"cli (a): logged losses {losses}")
+            print(f"   (a) train+measure: {train_steps} train steps, grids, checkpoint, {n_png} PNGs in {wall_a:.2f} s; "
+                  f"score.json {score}")
+
+            # (b) sampling, then measure --sample_ep 0
+            t0 = time.perf_counter()
+            cli.main(["--mode", "sampling", "--ckpt", run, "--gpu", "0"])
+            for sub in ("samples", "backdoor_samples"):
+                check(os.path.exists(os.path.join(run, sub, "epfinal_noclip.png")), f"cli (b): {sub} grid missing")
+            cli.main(["--mode", "measure", "--ckpt", run, "--sample_ep", "0", "--gpu", "0"])
+            wall_b = time.perf_counter() - t0
+            score = read_json(os.path.join(run, "score.json"))
+            ep0 = {k: score[k.replace("_noclip", "_ep0_noclip")] for k in ("FID_proxy_noclip", "MSE_noclip", "SSIM_noclip")}
+            check(all(np.isfinite(v) for v in ep0.values()) and -1.0 <= ep0["SSIM_noclip"] <= 1.0
+                  and count_pngs(os.path.join(run, "measure", "ep0", "backdoor_noclip")) == CLI_MEASURE_N,
+                  f"cli (b): score.json {score}")
+            check(all(abs(ep0[k] - score[k]) <= 1e-3 * abs(score[k]) for k in ("MSE_noclip", "SSIM_noclip"))
+                  and abs(ep0["FID_proxy_noclip"] - score["FID_proxy_noclip"]) <= 1e-2 * score["FID_proxy_noclip"],
+                  f"cli (b): epoch 0's export (the final weights) scores {ep0}, the final {score}")
+            print(f"   (b) sampling grids and measure --sample_ep 0 in {wall_b:.2f} s: _ep0 scores "
+                  f"{ {k: score[k] for k in sorted(score) if '_ep0' in k} } (the final weights': within rtol 1e-3/1e-2)")
+
+            # (c) anp_cli on the run dir
+            t0 = time.perf_counter()
+            anp_cli.main(["--ckpt", os.path.basename(run), "--epoch", "1", "--batch", str(BATCH),
+                          "--fake_size", str(CLI_FAKE_SIZE), "--measure_sample_n", str(ANP_MEASURE_N),
+                          "--sampling_steps", str(CLI_STEPS), "--perturb_budget", str(ANP_BUDGET), "--gpu", "0",
+                          "--output_dir", os.path.join(root, "anp")])
+            wall_c = time.perf_counter() - t0
+        finally:
+            hook.remove()
+            factory.DiffusionPipeline, cli.make_train_step, anp_cli.make_anp_step = saved
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        anp_dir = os.path.join(root, "anp", f"res_anp_1_lr0.0001_pb{ANP_BUDGET}_{os.path.basename(run)}")
+        anp_steps = CLI_FAKE_SIZE // BATCH
+        step_logs = [r for r in read_jsonl(os.path.join(anp_dir, "logs", "metrics.jsonl")) if "loss" in r]
+        check(len(step_logs) == anp_steps == len(anp_records)
+              and all(np.isfinite([r["loss"], r["clean_mse"], r["backdoor_mse"]]).all() for r in step_logs),
+              f"cli (c): ANP step logs {step_logs}")
+        peaks = [rec[2].item() for rec in anp_records]
+        check(max(peaks) <= ANP_BUDGET, f"cli (c): largest |γ|, |β| after each step {peaks}")
+        score_anp = read_json(os.path.join(anp_dir, "score.json"))
+        check(set(score_anp) == {"MSE", "MSE_ep1", "MSE_best", "SSIM", "SSIM_ep1", "SSIM_best"}
+              and all(np.isfinite(v) for v in score_anp.values()), f"cli (c): score.json {score_anp}")
+        exported, _, _ = factory.get_trained(anp_dir, dtype=torch.float32, device=dev)
+        base, _, _ = factory.get_trained(run, dtype=torch.float32, device=dev)
+        x = torch.randn(2, 32, 32, 3, generator=torch.Generator(dev).manual_seed(81), device=dev)
+        with torch.inference_mode():
+            y = exported(x, torch.tensor([10, 900], device=dev))
+        moved = sum(not torch.equal(a, b) for a, b in zip(exported.parameters(), base.parameters()))
+        check(bool(torch.isfinite(y).all()) and moved > 0, f"cli (c): export reloaded, {moved} tensors moved")
+        del exported, base
+        print(f"   (c) anp_cli: {anp_steps} ANP steps, grids, measure, export in {wall_c:.2f} s; losses "
+              f"{step_logs[0]['loss']:.4f} -> {step_logs[-1]['loss']:.4f}, backdoor_mse "
+              f"{step_logs[0]['backdoor_mse']:.4f} -> {step_logs[-1]['backdoor_mse']:.4f}; largest |γ|, |β| "
+              f"{max(peaks):.4f} (budget {ANP_BUDGET}); score.json {score_anp}; export reloaded through "
+              f"factory.get_trained, {moved} parameter tensors perturbed, forward finite")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if not os.listdir(TMP_BASE):
+            os.rmdir(TMP_BASE)
+
+    # the forwards of the chains: (a) grids 2 chains and measure 2 x 2 chunks, (b) grids and a
+    # measure again, (c) grids at epoch 0, a 128-image measure (one chunk) and the final grids
+    sampled = sum(steps for _, steps, _ in calls)
+    chunks = -(-CLI_MEASURE_N // CLI_EVAL_BATCH)
+    want = CLI_STEPS * (2 + 2 * chunks + 2 + 2 * chunks + 2 + 1 + 2)
+    steps = train_steps + anp_steps
+    check(sampled == want and forwards[0] == steps + sampled,
+          f"cli: {forwards[0]} UNet forwards, {sampled} in chains (designed {want}), {steps} steps")
+
+    # (d) card against CPU
+    rng = np.random.RandomState(82)
+    a = rng.rand(CLI_MEASURE_N, 32, 32, 3).astype(np.float32)
+    b = np.clip(a + 0.2 * rng.randn(*a.shape), 0, 1).astype(np.float32)
+    for name, fn in (("mse", mse), ("ssim", ssim)):
+        got, want_v = float(fn(a, b, device=dev)), float(fn(a, b, device="cpu"))
+        check(abs(got - want_v) <= 1e-4 * abs(want_v), f"{name} card {got!r} vs CPU {want_v!r}")
+        print(f"   (d) {name} [{CLI_MEASURE_N}, 32, 32, 3] card vs CPU: {got!r} vs {want_v!r} (rtol 1e-4)")
+    check_activations(f"proxy extractor [{CLI_MEASURE_N}, 32, 32, 3]", proxy_extractor(dev)(a).cpu(),
+                      proxy_extractor("cpu")(a))
+    inception = seeded_inception()
+    xi = torch.from_numpy(a[: INCEPTION_CHECK_SHAPE[0]])
+    want_i = inception(xi)
+    inception_card = inception.to(dev, memory_format=torch.channels_last)
+    check_activations(f"FIDInceptionV3 {list(INCEPTION_CHECK_SHAPE)} -> 299^2", inception_card(xi.to(dev)).cpu(),
+                      want_i)
+    t0 = time.perf_counter()
+    fid_card = fid([a, b], device=dev)
+    fid_cpu = fid([a, b], device="cpu")
+    check(abs(fid_card - fid_cpu) <= 1e-3 * abs(fid_cpu), f"FID card {fid_card!r} vs CPU {fid_cpu!r}")
+    print(f"   (d) FID (proxy) of two seeded {CLI_MEASURE_N}-image sets card vs CPU: {fid_card!r} vs {fid_cpu!r} "
+          f"(rtol 1e-3); both, with their host sqrtm, {time.perf_counter() - t0:.1f} s")
+
+    # (e) the numbers
+    xb = torch.from_numpy(a[:INCEPTION_BATCH]).to(dev)
+    inc_ms = time_ms(lambda: inception_card(xb), reps=5, repeats=3)
+    train_gap, anp_gap = start_gaps_ms(train_records), start_gaps_ms(anp_records)
+    anp_dev = [s.elapsed_time(e) for s, e, _ in anp_records]
+    measure_calls = [(r, s, dt) for r, s, dt in calls if r == CLI_EVAL_BATCH]
+    rows, secs = sum(r for r, _, _ in measure_calls), sum(dt for _, _, dt in measure_calls)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"   (e) CLI train step B={BATCH} (bf16 compute): median {statistics.median(train_gap):.3f} ms/step between "
+          f"step starts over {len(train_gap)} gaps ({BATCH / statistics.median(train_gap) * 1e3:.1f} samples/s) "
+          f"on {smi}")
+    print(f"   (e) ANP step B={BATCH} (bf16 compute, loss read back each step): median "
+          f"{statistics.median(anp_gap):.3f} ms between step starts, {statistics.median(anp_dev):.3f} ms from a "
+          f"step's start to its end on the device, over {len(anp_gap)} gaps on {smi}")
+    print(f"   (e) measure chains, f32 without TF32, {CLI_STEPS} DDIM steps at B={CLI_EVAL_BATCH}: "
+          f"{len(measure_calls)} chains, {rows / secs:.2f} imgs/s, {secs / len(measure_calls) / CLI_STEPS * 1e3:.3f} "
+          f"ms/step on {smi}")
+    print(f"   (e) FIDInceptionV3 f32 without TF32, B={INCEPTION_BATCH} at 32 px -> 299^2: {inc_ms:.3f} ms a batch, "
+          f"{INCEPTION_BATCH / inc_ms * 1e3:.1f} imgs/s on {smi}")
+    print(f"   (e) phase 8 took {time.perf_counter() - phase_t0:.1f} s ((a) {wall_a:.1f} s, (b) {wall_b:.1f} s, "
+          f"(c) {wall_c:.1f} s); peak device memory {peak:.1f} GiB; on {smi}")
+    return steps, sampled, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs only on a GPU", file=sys.stderr)
@@ -1163,6 +1443,7 @@ def main() -> int:
     zoo_fwd, zoo = phase_zoo(dev, smi)
     steps, training, bare_ms = phase_train(dev, smi)
     loop_steps, loop_sampled, trainer_counts = phase_trainer(dev, smi, bare_ms)
+    cli_steps, cli_sampled, cli_counts = phase_cli(dev, smi)
 
     for path, n, counts, want in (
         ("sampling", f"{forwards} UNet forwards", sampling,
@@ -1178,12 +1459,17 @@ def main() -> int:
          {"groupnorm_silu": GN_PER_FORWARD * (loop_steps + loop_sampled),
           "groupnorm_silu_backward": GN_PER_FORWARD * loop_steps,
           "attention": ATTN_PER_FORWARD * (loop_steps + loop_sampled)}),
+        ("CLI and ANP", f"{cli_steps} train and ANP steps and {cli_sampled} sampling forwards", cli_counts,
+         {"groupnorm_silu": GN_PER_FORWARD * (cli_steps + cli_sampled),
+          "groupnorm_silu_backward": GN_PER_FORWARD * cli_steps,
+          "attention": ATTN_PER_FORWARD * (cli_steps + cli_sampled)}),
     ):
         print(f"launch counts over the {path} path ({n} on the card): "
               + ", ".join(f"{k}={v}" for k, v in counts.items()))
         check(counts == want and counts["groupnorm_silu"] > 0, f"{path} launches {counts}, want {want}")
     for k in kernels:
-        k["launches"] = sampling[k["name"]] + zoo[k["name"]] + training[k["name"]] + trainer_counts[k["name"]]
+        k["launches"] = (sampling[k["name"]] + zoo[k["name"]] + training[k["name"]] + trainer_counts[k["name"]]
+                         + cli_counts[k["name"]])
     print(f"chip_smoke: every check passed in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

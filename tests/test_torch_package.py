@@ -4,8 +4,11 @@ and raises rather than falling back to the CPU."""
 
 import ast
 import importlib
+import json
 import os
 import pkgutil
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -57,12 +60,15 @@ TRAINER_MODULES = ("utils.logging", "utils.image", "utils.samples", "utils.track
 ZOO_MODULES = ("schedulers.ddim", "schedulers.dpmsolver", "schedulers.deis", "schedulers.unipc", "schedulers.pndm",
                "schedulers.heun", "schedulers.lms", "schedulers.sde_ve", "schedulers.karras_ve", "pipelines.sampler",
                "pipelines.pipeline", "factory")
+# the command lines, the measure and the defense, likewise
+CLI_MODULES = ("config", "cli", "anp_cli", "metrics._prng", "metrics.image", "metrics.fid", "models.inception",
+                  "defense.anp", "io.hf", "device")
 
 
 def test_every_module_imports_without_nvcc_or_a_gpu():
     names = [m.name for m in pkgutil.walk_packages([PACKAGE_DIR], prefix="baddiffusion_tpu_torch.")]
     assert "baddiffusion_tpu_torch.ops._build" in names and "baddiffusion_tpu_torch.pipelines.pipeline" in names
-    for modules in (TRAINER_MODULES, ZOO_MODULES):
+    for modules in (TRAINER_MODULES, ZOO_MODULES, CLI_MODULES):
         assert {f"baddiffusion_tpu_torch.{m}" for m in modules} <= set(names)
         checked = {os.path.relpath(p, PACKAGE_DIR) for p in _sources()}
         assert {m.replace(".", os.sep) + ".py" for m in modules} <= checked
@@ -70,9 +76,28 @@ def test_every_module_imports_without_nvcc_or_a_gpu():
         importlib.import_module(name)
 
 
+def test_new_modules_load_no_jax_in_a_fresh_interpreter():
+    """Importing each command-line, metric and defense module (and the package's
+    entry points) in a fresh interpreter leaves no JAX, flax, optax or
+    ``baddiffusion_tpu`` module in ``sys.modules``."""
+    names = [f"baddiffusion_tpu_torch.{m}" for m in CLI_MODULES + ("metrics", "defense")]
+    code = ("import importlib, json, sys\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "    bad = sorted(m for m in sys.modules if m.split('.')[0] in " + repr(FORBIDDEN) + ")\n"
+            "    print(json.dumps([name, bad]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         env={k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"})
+    assert out.returncode == 0, out.stderr
+    lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("[")]
+    assert [name for name, _ in lines] == names
+    assert all(not bad for _, bad in lines), lines
+
+
 def test_scipy_is_imported_only_where_the_lms_table_is_built():
     """K-LMS builds its coefficient table with scipy, imported inside that
-    function; no module of the port imports it at the top."""
+    function, as the FID's sqrtm does; no module of the port imports it at
+    the top."""
     for path in _sources():
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)
@@ -93,6 +118,23 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DiffusionPipeline.from_pretrained(str(tmp_path))
     assert DiffusionPipeline.from_pretrained(str(tmp_path), device="cpu").device.type == "cpu"
+
+
+def test_command_lines_default_to_cuda(monkeypatch, tmp_path):
+    """No --gpu and no CUDA: the CLI's and anp_cli's runs raise, they do not
+    carry on on the CPU."""
+    from baddiffusion_tpu_torch import anp_cli, cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--mode", "train", "--dataset", "FAKE", "--batch", "128", "--epoch", "1", "--fake_size", "128",
+                  "--result", str(tmp_path), "-o"])
+    os.makedirs(tmp_path / "run")
+    with open(tmp_path / "run" / "args.json", "w") as f:
+        json.dump({"trigger": "BOX_14", "target": "CORNER", "dataset": "FAKE", "poison_rate": 0.1}, f)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        anp_cli.main(["--ckpt", str(tmp_path / "run"), "--output_dir", str(tmp_path / "anp"), "--fake_size", "16"])
 
 
 def test_kernel_wrappers_refuse_other_devices():
