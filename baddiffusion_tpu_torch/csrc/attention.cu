@@ -5,8 +5,9 @@
 // baddiffusion_tpu/ops/attention.py, which keeps one (b, h)'s whole [T, T]
 // score block in VMEM and runs both products on the MXU. Here no [T, T]
 // tensor exists anywhere: the softmax is exact over registers (packed) or
-// online over key tiles (tiled, rowwise). Envelope as in the TPU module:
-// T <= 1024, D a multiple of 8 in [8, 512], f32 or bf16; q, k, v and o are
+// online over key tiles (tiled, rowwise). Envelope: T <= 4096 (the VQ-VAE's
+// mid block at a 64x64 latent, [B, 1, 4096, 512], the longest sequence of any
+// model of the repo), D a multiple of 8 in [8, 512], f32 or bf16; q, k, v and o are
 // contiguous, 16-byte aligned and of one dtype. The softmax and every sum are
 // f32; the output is stored in the input dtype.
 //
@@ -49,6 +50,7 @@
 namespace {
 
 enum Variant : int { kPacked = 0, kTiled = 1, kRowwise = 2 };
+constexpr int kMaxT = 4096;  // ops/attention.py MAX_T
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
@@ -523,7 +525,7 @@ bool bad_plan(int variant, int bh, int t_len, int d, int dtype, int threads, int
 extern "C" int bd_attention_fwd(const void* q, const void* k, const void* v, void* o, int bh, int t_len, int d,
                                 float scale, int dtype, int variant, int threads, int rows, int key_tile,
                                 int depth, int smem_bytes, void* stream_ptr) {
-  if (bh <= 0 || t_len < 1 || t_len > 1024 || d < 8 || d > 512 || d % 8 != 0 || (int64_t)bh * t_len > INT_MAX ||
+  if (bh <= 0 || t_len < 1 || t_len > kMaxT || d < 8 || d > 512 || d % 8 != 0 || (int64_t)bh * t_len > INT_MAX ||
       (dtype != bd::kFloat32 && dtype != bd::kBFloat16) ||
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) != 0 ||
       bad_plan(variant, bh, t_len, d, dtype, threads, rows, key_tile, depth, smem_bytes)) {

@@ -9,23 +9,24 @@
 - ``get_model_sched``: the scratch UNet (the reference's default
   architecture), or a ``*-DEFAULT`` alias's architecture with fresh weights.
 - ``get_pretrained`` / ``get_trained``: an HF-layout pipeline directory, with
-  the pipeline kind inferred from the stored scheduler's class. Checkpoint
-  aliases map to hub ids, which resolve offline only (a local directory or
-  the local HF cache).
+  the pipeline kind inferred from the stored scheduler's class; an LDM
+  directory (``model_index.json`` names LDMPipeline or a ``vqvae``) gives
+  ``LDMPipeline``s, with its own scheduler, or ``noise_sched_type``'s built
+  on the CLI's linear betas (SDE-VE and Karras-VE refused: the latent chain
+  has no engine for them). Checkpoint aliases map to hub ids, which resolve
+  offline only (a local directory or the local HF cache).
 
 Each returns ``(model, scheduler, get_pipeline)``: the UNet holds its own
 weights, so where the JAX package returns ``params`` beside the model, the
 port has none. ``get_pipeline(scheduler, unet=None, **kwargs)`` builds the
-``DiffusionPipeline`` around ``unet`` (default: the model) with ``kwargs``
-(``device``, ``compute_dtype``). The model is made on ``device``, CUDA
-unless the caller asks otherwise. Not ported: LDM checkpoints (the VQ-VAE
-and the latent pipeline, ROADMAP Queue 1 item 10).
+``DiffusionPipeline`` (or ``LDMPipeline``) around ``unet`` (default: the
+model) with ``kwargs`` (``device``, ``compute_dtype``). The model is made on
+``device``, CUDA unless the caller asks otherwise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 from typing import Callable, Optional, Tuple
 
@@ -34,6 +35,7 @@ import torch
 from baddiffusion_tpu_torch import schedulers as S
 from baddiffusion_tpu_torch.device import DeviceLike
 from baddiffusion_tpu_torch.models.unet2d import DEFAULT_SCRATCH_CONFIG, UNet2DConfig, UNet2DModel
+from baddiffusion_tpu_torch.pipelines.ldm import LDMPipeline, is_ldm_dir
 from baddiffusion_tpu_torch.pipelines.pipeline import DiffusionPipeline
 
 
@@ -224,14 +226,6 @@ def _pretrained_scheduler(ckpt: str, clip_sample: Optional[bool], noise_sched_ty
     ``noise_sched_type`` the checkpoint's own scheduler, with the clip
     override pushed into its config, and the kind of its class."""
     path = resolve_checkpoint_path(ckpt)
-    index_path = os.path.join(path, "model_index.json")
-    if os.path.exists(index_path):
-        with open(index_path) as f:
-            index = json.load(f)
-        if index.get("_class_name") == "LDMPipeline" or "vqvae" in index:
-            raise NotImplementedError(
-                f"{ckpt!r} is an LDM checkpoint: the VQ-VAE and the latent pipeline are not ported yet "
-                "(ROADMAP Queue 1 item 10)")
     clip = DiffuserModelSched.CLIP_SAMPLE_DEFAULT if clip_sample is None else clip_sample
     if noise_sched_type is not None:
         make_sched, kind = _sched_spec(noise_sched_type)
@@ -258,10 +252,36 @@ def get_pretrained(
     scheduler, get_pipeline)``."""
     from baddiffusion_tpu_torch.io import load_unet
 
+    ldm_path = resolve_checkpoint_path(ckpt)
+    if is_ldm_dir(ldm_path):
+        return _get_ldm(ldm_path, clip_sample, noise_sched_type, dtype, device)
     path, scheduler, kind = _pretrained_scheduler(ckpt, clip_sample, noise_sched_type)
     model = load_unet(path, subfolder="unet", device=device, dtype=dtype)
     clip = DiffuserModelSched.CLIP_SAMPLE_DEFAULT if clip_sample is None else clip_sample
     return model, scheduler, _make_get_pipeline(model, kind, clip)
+
+
+def _get_ldm(path: str, clip_sample: Optional[bool], noise_sched_type: Optional[str], dtype: torch.dtype,
+             device: DeviceLike):
+    """(unet, scheduler, get_pipeline) of an LDM directory: its own scheduler
+    as stored, or ``noise_sched_type``'s on the CLI's linear betas (as the
+    reference swaps a checkpoint's scheduler, whatever betas it trained
+    with). SDE-VE and Karras-VE run engines of their own that only the pixel
+    pipeline has, so asking for them raises."""
+    clip = DiffuserModelSched.CLIP_SAMPLE_DEFAULT if clip_sample is None else clip_sample
+    pipe = LDMPipeline.from_pretrained(path, clip_sample=clip, dtype=dtype, device=device)
+    scheduler = pipe.scheduler
+    if noise_sched_type is not None:
+        make_sched, kind = _sched_spec(noise_sched_type)
+        if kind in ("sde", "karras"):
+            raise NotImplementedError(
+                f"--sched {noise_sched_type} is not supported on LDM checkpoints (no generic step() engine for it)")
+        scheduler = make_sched(clip)
+
+    def get_pipeline(scheduler, unet: Optional[UNet2DModel] = None, **kwargs) -> LDMPipeline:
+        return LDMPipeline(pipe.vqvae, pipe.unet if unet is None else unet, scheduler, clip_sample=clip, **kwargs)
+
+    return pipe.unet, scheduler, get_pipeline
 
 
 get_trained = get_pretrained

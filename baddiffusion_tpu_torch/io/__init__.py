@@ -3,6 +3,7 @@ from baddiffusion_tpu_torch.io.hf import (
     WEIGHTS_NAME,
     load_torch_state_dict,
     load_unet,
+    load_vqmodel,
     perturb_from_jax,
     save_unet,
     state_dict_from_jax,
@@ -13,6 +14,7 @@ __all__ = [
     "WEIGHTS_NAME",
     "load_torch_state_dict",
     "load_unet",
+    "load_vqmodel",
     "perturb_from_jax",
     "save_unet",
     "state_dict_from_jax",

@@ -1,15 +1,17 @@
-"""HF-layout UNet checkpoints, and weights carried over from the JAX package
-(port of ``baddiffusion_tpu/io/hf.py``).
+"""HF-layout UNet and VQ-VAE checkpoints, and weights carried over from the
+JAX package (port of ``baddiffusion_tpu/io/hf.py``).
 
 ``state_dict_from_jax`` is the port's own copy of the conversion rules from
 the JAX package's nested param dict (numpy arrays, NHWC/HWIO layout) to the
-HF-0.16 torch state dict that ``UNet2DModel`` loads with ``strict=True``:
+HF-0.16 torch state dict that ``UNet2DModel`` and ``VQModel`` load with
+``strict=True``:
 
   - pytree path ``down_blocks_0/resnets_1`` → module path ``down_blocks.0.resnets.1``
     (only for the ModuleList containers; ``linear_1`` keeps its underscore)
   - conv ``kernel`` [H,W,I,O] → ``weight`` [O,I,H,W]
   - dense ``kernel`` [I,O] → ``weight`` [O,I]
-  - norm ``scale`` → ``weight``; ``embedding`` → ``weight``
+  - norm ``scale`` → ``weight``; ``embedding`` → ``weight`` (the class
+    embedding, the VQ codebook ``quantize.embedding``)
 
 ``perturb_from_jax`` carries an ANP perturbation (``defense/anp.py``) across
 by the same path rule: the JAX tree ``{conv path: {gamma, beta}}`` becomes
@@ -26,6 +28,7 @@ import torch
 
 from baddiffusion_tpu_torch.device import DeviceLike
 from baddiffusion_tpu_torch.models.unet2d import UNet2DConfig, UNet2DModel
+from baddiffusion_tpu_torch.models.vae import VQModel, VQModelConfig
 
 WEIGHTS_NAME = "diffusion_pytorch_model.bin"
 SAFETENSORS_NAME = "diffusion_pytorch_model.safetensors"
@@ -97,8 +100,9 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def save_unet(unet: UNet2DModel, save_directory: str, use_safetensors: bool = True) -> None:
-    """Write config.json + f32 weights, readable by the JAX package and diffusers."""
+def save_unet(unet, save_directory: str, use_safetensors: bool = True) -> None:
+    """Write config.json + f32 weights, readable by the JAX package and
+    diffusers: a ``UNet2DModel`` or a ``VQModel``."""
     os.makedirs(save_directory, exist_ok=True)
     unet.config.save(save_directory)
     sd = {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in unet.state_dict().items()}
@@ -117,5 +121,16 @@ def load_unet(path: str, subfolder: Optional[str] = None, device: DeviceLike = N
     if subfolder:
         path = os.path.join(path, subfolder)
     model = UNet2DModel(UNet2DConfig.load(path), device=device, dtype=dtype)
+    model.load_state_dict(load_torch_state_dict(path), strict=True)
+    return model
+
+
+def load_vqmodel(path: str, subfolder: Optional[str] = None, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32) -> VQModel:
+    """Load an HF-layout VQModel dir onto ``device`` (CUDA by default),
+    computing in ``dtype`` (its parameters stay f32)."""
+    if subfolder:
+        path = os.path.join(path, subfolder)
+    model = VQModel(VQModelConfig.load(path), device=device, dtype=dtype)
     model.load_state_dict(load_torch_state_dict(path), strict=True)
     return model

@@ -11,8 +11,12 @@ channels_last too so cuDNN never converts them per call.
 Module attribute names give the HF-0.16 state-dict keys, so converted weights
 (io/hf.py) load with ``strict=True``.
 
-Not ported yet: the FIR skip blocks (NCSN++ family) and class embeddings;
-constructing a config that needs them raises ``NotImplementedError``.
+Every config of the JAX model builds: the DDPM blocks, the NCSN++ FIR skip
+blocks (``SkipDownBlock2D``/``SkipUpBlock2D`` and their Attn variants, with
+the image-space skip sample carried down and restarted on the way up) and
+the class embeddings (``num_class_embeds`` → an ``Embedding``,
+``class_embed_type`` ``"timestep"`` or ``"identity"``; ``forward`` then takes
+``class_labels``).
 """
 
 from __future__ import annotations
@@ -27,7 +31,17 @@ import torch
 from torch import nn
 
 from baddiffusion_tpu_torch.device import DeviceLike, resolve_device
-from baddiffusion_tpu_torch.models.blocks import AttnDownBlock2D, AttnUpBlock2D, DownBlock2D, UNetMidBlock2D, UpBlock2D
+from baddiffusion_tpu_torch.models.blocks import (
+    AttnDownBlock2D,
+    AttnSkipDownBlock2D,
+    AttnSkipUpBlock2D,
+    AttnUpBlock2D,
+    DownBlock2D,
+    SkipDownBlock2D,
+    SkipUpBlock2D,
+    UNetMidBlock2D,
+    UpBlock2D,
+)
 from baddiffusion_tpu_torch.models.embeddings import GaussianFourierProjection, TimestepEmbedding, Timesteps
 from baddiffusion_tpu_torch.models.resnet import Conv2d, GroupNorm, Linear
 
@@ -35,6 +49,9 @@ MODEL_CONFIG_NAME = "config.json"
 
 _DOWN_BLOCKS = {"DownBlock2D": DownBlock2D, "AttnDownBlock2D": AttnDownBlock2D}
 _UP_BLOCKS = {"UpBlock2D": UpBlock2D, "AttnUpBlock2D": AttnUpBlock2D}
+# the NCSN++ blocks: no resnet_groups (theirs follow the channels), and a skip sample in and out
+_SKIP_DOWN_BLOCKS = {"SkipDownBlock2D": SkipDownBlock2D, "AttnSkipDownBlock2D": AttnSkipDownBlock2D}
+_SKIP_UP_BLOCKS = {"SkipUpBlock2D": SkipUpBlock2D, "AttnSkipUpBlock2D": AttnSkipUpBlock2D}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +84,7 @@ class UNet2DConfig:
     downsample_padding: int = 1
     act_fn: str = "silu"
     attention_head_dim: Optional[int] = 8
-    norm_num_groups: int = 32
+    norm_num_groups: Optional[int] = 32
     norm_eps: float = 1e-5
     resnet_time_scale_shift: str = "default"
     add_attention: bool = True
@@ -129,7 +146,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """Deterministic init of every parameter from ``generator`` (a CPU
     generator, so the weights do not depend on the device): conv and linear
     weights N(0, 1/fan_in), biases 0, norm scales 1, the Fourier projection
-    ``scale``·N(0, 1)."""
+    ``scale``·N(0, 1), embedding tables N(0, 1)."""
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.Linear)):
             w = module.weight
@@ -142,6 +159,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
             module.bias.zero_()
         elif isinstance(module, GaussianFourierProjection):
             module.weight.copy_(torch.randn(module.weight.shape, generator=generator) * module.scale)
+        elif isinstance(module, nn.Embedding):
+            module.weight.copy_(torch.randn(module.weight.shape, generator=generator))
 
 
 class UNet2DModel(nn.Module):
@@ -154,12 +173,12 @@ class UNet2DModel(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.dtype = dtype
-        if config.class_embed_type is not None or config.num_class_embeds is not None:
-            raise NotImplementedError("class embeddings are not ported yet")
-        unported = [t for t in config.down_block_types if t not in _DOWN_BLOCKS]
-        unported += [t for t in config.up_block_types if t not in _UP_BLOCKS]
-        if unported:
-            raise NotImplementedError(f"blocks {unported} are not ported yet")
+        unknown = [t for t in config.down_block_types if t not in _DOWN_BLOCKS and t not in _SKIP_DOWN_BLOCKS]
+        unknown += [t for t in config.up_block_types if t not in _UP_BLOCKS and t not in _SKIP_UP_BLOCKS]
+        if unknown:
+            raise NotImplementedError(f"blocks {unknown}")
+        if config.class_embed_type not in (None, "timestep", "identity"):
+            raise NotImplementedError(f"class_embed_type {config.class_embed_type!r}")
         self.config = config
         with torch.device("meta"):  # build without allocating; init below
             self._build(config)
@@ -178,6 +197,11 @@ class UNet2DModel(nn.Module):
             self.time_proj = Timesteps(c0, flip_sin_to_cos=cfg.flip_sin_to_cos, downscale_freq_shift=cfg.freq_shift)
             timestep_input_dim = c0
         self.time_embedding = TimestepEmbedding(timestep_input_dim, time_embed_dim)
+        if cfg.class_embed_type is None and cfg.num_class_embeds is not None:
+            self.class_embedding = nn.Embedding(cfg.num_class_embeds, time_embed_dim)
+        elif cfg.class_embed_type == "timestep":
+            self.class_proj = Timesteps(c0, flip_sin_to_cos=cfg.flip_sin_to_cos, downscale_freq_shift=cfg.freq_shift)
+            self.class_embedding = TimestepEmbedding(c0, time_embed_dim)
         self.conv_in = Conv2d(cfg.in_channels, c0, 3, padding=1)
 
         n_levels = len(cfg.block_out_channels)
@@ -188,11 +212,14 @@ class UNet2DModel(nn.Module):
             kwargs = dict(
                 in_channels=input_channel, out_channels=output_channel, temb_channels=time_embed_dim,
                 num_layers=cfg.layers_per_block, resnet_eps=cfg.norm_eps,
-                resnet_time_scale_shift=cfg.resnet_time_scale_shift, resnet_groups=cfg.norm_num_groups,
-                add_downsample=i != n_levels - 1, downsample_padding=cfg.downsample_padding, dropout=cfg.dropout,
-                attn_num_head_channels=cfg.attention_head_dim,
+                resnet_time_scale_shift=cfg.resnet_time_scale_shift, add_downsample=i != n_levels - 1,
+                dropout=cfg.dropout, attn_num_head_channels=cfg.attention_head_dim,
             )
-            down.append(_DOWN_BLOCKS[block_type](**kwargs))
+            if block_type in _SKIP_DOWN_BLOCKS:
+                down.append(_SKIP_DOWN_BLOCKS[block_type](skip_channels=cfg.in_channels, **kwargs))
+            else:
+                down.append(_DOWN_BLOCKS[block_type](resnet_groups=cfg.norm_num_groups,
+                                                     downsample_padding=cfg.downsample_padding, **kwargs))
         self.down_blocks = nn.ModuleList(down)
 
         self.mid_block = UNetMidBlock2D(
@@ -211,13 +238,16 @@ class UNet2DModel(nn.Module):
                 in_channels=reversed_channels[min(i + 1, n_levels - 1)], prev_output_channel=prev_output_channel,
                 out_channels=output_channel, temb_channels=time_embed_dim, num_layers=cfg.layers_per_block + 1,
                 resnet_eps=cfg.norm_eps, resnet_time_scale_shift=cfg.resnet_time_scale_shift,
-                resnet_groups=cfg.norm_num_groups, add_upsample=i != n_levels - 1, dropout=cfg.dropout,
-                attn_num_head_channels=cfg.attention_head_dim,
+                add_upsample=i != n_levels - 1, dropout=cfg.dropout, attn_num_head_channels=cfg.attention_head_dim,
             )
-            up.append(_UP_BLOCKS[block_type](**kwargs))
+            if block_type in _SKIP_UP_BLOCKS:
+                up.append(_SKIP_UP_BLOCKS[block_type](skip_channels=cfg.in_channels, **kwargs))
+            else:
+                up.append(_UP_BLOCKS[block_type](resnet_groups=cfg.norm_num_groups, **kwargs))
         self.up_blocks = nn.ModuleList(up)
 
-        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, c0, cfg.norm_eps, silu=True)
+        groups_out = cfg.norm_num_groups if cfg.norm_num_groups is not None else min(c0 // 4, 32)
+        self.conv_norm_out = GroupNorm(groups_out, c0, cfg.norm_eps, silu=True)
         self.conv_out = Conv2d(c0, cfg.out_channels, 3, padding=1)
 
     def compute_copy(self, dtype: torch.dtype) -> "UNet2DModel":
@@ -231,9 +261,11 @@ class UNet2DModel(nn.Module):
         twin.dtype = dtype
         return twin
 
-    def forward(self, sample: torch.Tensor, timesteps) -> torch.Tensor:
-        """sample: ``[B, H, W, C]``; timesteps: scalar or ``[B]``. Computes in
-        ``self.dtype``; returns f32."""
+    def forward(self, sample: torch.Tensor, timesteps, class_labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sample: ``[B, H, W, C]``; timesteps: scalar or ``[B]``;
+        class_labels: ``[B]`` class ids (``num_class_embeds``) or timesteps
+        (``"timestep"``), or ``[B, 4·C0]`` embeddings (``"identity"``).
+        Computes in ``self.dtype``; returns f32."""
         cfg = self.config
         dtype = self.dtype
         if cfg.center_input_sample:
@@ -243,22 +275,40 @@ class UNet2DModel(nn.Module):
             timesteps = timesteps.expand(sample.shape[0])
 
         emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
+        if cfg.class_embed_type is None and cfg.num_class_embeds is not None:
+            emb = emb + self.class_embedding(class_labels.long()).to(dtype)
+        elif cfg.class_embed_type == "timestep":
+            emb = emb + self.class_embedding(self.class_proj(class_labels).to(dtype))
+        elif cfg.class_embed_type == "identity":
+            emb = emb + class_labels.to(dtype)
+
+        skip_sample = sample
         sample = self.conv_in(sample.to(dtype))
 
         down_block_res_samples = (sample,)
         for block in self.down_blocks:
-            sample, res_samples = block(sample, emb)
+            if isinstance(block, SkipDownBlock2D):
+                sample, res_samples, skip_sample = block(sample, emb, skip_sample)
+            else:
+                sample, res_samples = block(sample, emb)
             down_block_res_samples += res_samples
 
         sample = self.mid_block(sample, emb)
 
+        # the skip chain restarts at None on the way up
+        skip_sample = None
         for block in self.up_blocks:
             n_res = len(block.resnets)
             res_samples = down_block_res_samples[-n_res:]
             down_block_res_samples = down_block_res_samples[:-n_res]
-            sample = block(sample, res_samples, emb)
+            if isinstance(block, SkipUpBlock2D):
+                sample, skip_sample = block(sample, res_samples, emb, skip_sample)
+            else:
+                sample = block(sample, res_samples, emb)
 
         sample = self.conv_out(self.conv_norm_out(sample))
+        if skip_sample is not None:
+            sample = sample + skip_sample
         if cfg.time_embedding_type == "fourier":
             sample = sample / timesteps.reshape(-1, 1, 1, 1).to(sample.dtype)
         return sample.float()

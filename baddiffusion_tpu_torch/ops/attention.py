@@ -5,8 +5,11 @@ Port of ``baddiffusion_tpu/ops/attention.py``. The kernel,
 ``csrc/attention.cu``, replaces the Pallas TPU kernel
 ``_forward_pallas``/``_kernel``: softmax(q·kᵀ·scale)·v per (batch, head) over
 ``[B, H, T, D]``, with the softmax and every sum in f32 and no ``[T, T]``
-tensor in memory. Envelope, as in the TPU module: T ≤ 1024, D a multiple of 8
-in [8, 512]; f32 or bf16, contiguous, 16-byte aligned.
+tensor in memory. Envelope: T ≤ 4096 (the VQ-VAE's mid block at a 64×64
+latent, the longest sequence of any model of the repo), D a multiple of 8 in
+[8, 512]; f32 or bf16, contiguous, 16-byte aligned. The JAX ``attention``
+has no bound on T (outside its Pallas envelope it runs its reference); here
+a call outside the envelope raises.
 
 Each call runs one of three variants, chosen on the host by
 ``attention_plan`` (cached) and checked again by the kernel's C entry point:
@@ -35,7 +38,7 @@ import torch
 
 from baddiffusion_tpu_torch.ops import _build
 
-MAX_T = 1024
+MAX_T = 4096
 MIN_D, MAX_D = 8, 512
 # K3's launch plan (csrc/attention.cu): the H100's SMs, and the plan's choices
 FULL_GRID = 132  # blocks: one per SM

@@ -1,3 +1,4 @@
+from baddiffusion_tpu_torch.pipelines.ldm import LDMPipeline
 from baddiffusion_tpu_torch.pipelines.pipeline import (
     DiffusionPipeline,
     PipelineOutput,
@@ -16,6 +17,7 @@ from baddiffusion_tpu_torch.pipelines.sampler import (
 
 __all__ = [
     "DiffusionPipeline",
+    "LDMPipeline",
     "PipelineOutput",
     "batch_sampling",
     "batch_sampling_save",

@@ -17,6 +17,12 @@ from baddiffusion_tpu_torch.training.optim import (
     make_optimizer,
     polynomial_schedule_with_warmup,
 )
+from baddiffusion_tpu_torch.training.score_matching import (
+    ScoreTrainState,
+    VETrainStep,
+    create_score_train_state,
+    make_ve_train_step,
+)
 from baddiffusion_tpu_torch.training.train import TrainState, TrainStep, create_train_state, make_train_step
 from baddiffusion_tpu_torch.training.trainer import sample_grids, train_loop
 
@@ -24,11 +30,14 @@ __all__ = [
     "AdamState",
     "EMAState",
     "Optimizer",
+    "ScoreTrainState",
     "TrainState",
     "TrainStep",
+    "VETrainStep",
     "constant_schedule_with_warmup",
     "cosine_schedule_with_warmup",
     "cosine_with_restarts_schedule_with_warmup",
+    "create_score_train_state",
     "create_train_state",
     "ema_decay",
     "ema_init",
@@ -40,6 +49,7 @@ __all__ = [
     "load_trainer_state",
     "make_optimizer",
     "make_train_step",
+    "make_ve_train_step",
     "polynomial_schedule_with_warmup",
     "sample_grids",
     "save_checkpoint",

@@ -21,9 +21,17 @@
    the batch, apart), attention (K3; its launch plan printed at each shape:
    the main path's two shapes at batch 128 and 16, the scratch UNet at
    256 px, google/ddpm-cifar10-32, google/ddpm-ema-celebahq-256's 512-wide
-   head, the envelope's long end and a ragged T; each in f32 and bf16 against
-   the plain version and bitwise equal over two calls; its bound also counts
-   the exponentials, over the special-function rate).
+   head, T = 1024 and a ragged T; each in f32 and bf16 against the plain
+   version and bitwise equal over two calls; its bound also counts the
+   exponentials, over the special-function rate). Then phase 9's shapes,
+   each against its plain twin and bitwise over two calls, timed in the
+   dtype its path runs in beside its bound and library call: K1 and K2 at
+   CompVis/ldm-celebahq-256's UNet widths at B=16 (C = 224, 448, 672, 896
+   at 64, 32, 16 and 8 px: group widths 7-28, bf16) and its VQ-VAE's
+   [16, 256, 256, 128] (f32); K3 at the envelope's long end, the VQ-VAE's
+   [16, 1, 4096, 512] (f32 and bf16), the LDM UNet's heads of 32 at 32, 16
+   and 8 px, and NCSN++ at 16x16. Where two calls differ, the differing
+   elements and a third call are printed before the failure.
 3. The sampling path: the full-width scratch UNet (113.7M parameters, 32 px)
    with seeded weights, saved and reloaded through the pipeline's HF layout,
    one f32 forward and a 10-step f32 chain checked against the CPU's plain
@@ -38,10 +46,11 @@
    then the device time of a step split into forward, backward and optimizer.
 5. Launch counts over each main path's run (the sampling chains of phase 3,
    the timed train steps of phase 4, the two train_loop runs of phase 6,
-   the zoo's chains of phase 7, the CLI and ANP runs of phase 8; counters
-   set to 0 just before each and read just after): every GroupNorm+SiLU and
-   attention call must have gone through its kernel, 65 K1 and 6 K3 per UNet
-   forward and, in training and ANP, 65 K2 per step.
+   the zoo's chains of phase 7, the CLI and ANP runs of phase 8, the
+   windows of phase 9; counters set to 0 just before each and read just
+   after): every GroupNorm+SiLU and attention call must have gone through
+   its kernel, 65 K1 and 6 K3 per scratch UNet forward and, in training and
+   ANP, 65 K2 per step (phase 9's counts are its own, below).
 6. The trainer path (run after phase 4): train_loop on the scratch UNet at
    bf16 compute with f32 parameters, on DatasetLoader("FAKE", 1024 images,
    32 px, batch 128, seed 0) poisoned BOX_14 -> CORNER at 0.1, with
@@ -102,6 +111,28 @@
    images, not 2048; the ANP runs 1 epoch and 50-step chains, not 1000.
    The f32 chains run without TF32 (phase 1's setting).
 
+9. The latent-diffusion path and the NCSN++ family (run last). (a)
+   CompVis/ldm-celebahq-256 at full width (``model_configs``: the 274.1M
+   UNet at 64 px, the 55.3M VQ-VAE at 256 px with 8192 codes, DDIM over
+   scaled-linear betas), staged with seeded weights by ``stage_ldm`` into a
+   scratch run dir (deleted after) and reloaded through
+   ``factory.get_pretrained``, weights exact; a VQ decode (of nudged
+   codebook rows), an encode and a UNet forward in f32 on the card against
+   the CPU at B=1 (rtol 1e-3, atol 1e-3*max|y|); two 50-step DDIM chains in
+   bf16 (VQ-VAE f32) at B=16 from pixel noise and noise + BOX_14, encoded
+   to latents and decoded, images finite in [0, 1]; then ``cli.main``
+   --mode sampling (50-step grids with their movies) and --mode measure (64
+   + 64 images, 50 steps, f32) on the run dir, files and scores checked.
+   Printed: the chains' imgs/s and ms a step, the VQ encode's and decode's
+   and a bf16 UNet forward's ms at B=16, the CLI's times, peak memory. (b)
+   google/ncsnpp-celebahq-256 at full width (65.6M, 256 px): an f32 forward
+   card against CPU at B=1; a 10-step SDE-VE chain in bf16 at B=2 (its
+   default is 2000); 4 VE score steps at B=4 in bf16 on f32 parameters
+   (losses and grad norms finite). Cuts in depth only. Launch counts over
+   each counted window, from the module calls the window made: (K1, K3) a
+   call of the LDM UNet (45, 16), the VQ encoder (17, 1) and decoder (23,
+   1), NCSN++ (105, 4), and a K2 for every K1 of a score step.
+
 The last line is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its numbers. Any failed check raises, and the script exits
 non-zero. Without CUDA it exits non-zero and prints no result.
@@ -125,20 +156,30 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from baddiffusion_tpu_torch import anp_cli, cli, factory, ops
+from baddiffusion_tpu_torch import model_configs as mc
 from baddiffusion_tpu_torch.data import Backdoor, DatasetLoader, trigger_mask
 from baddiffusion_tpu_torch.defense import perturb_leaves
 from baddiffusion_tpu_torch.metrics import fid, mse, proxy_extractor, ssim
-from baddiffusion_tpu_torch.models import DEFAULT_SCRATCH_CONFIG, UNet2DModel
+from baddiffusion_tpu_torch.models import (
+    DEFAULT_SCRATCH_CONFIG,
+    AttentionBlock,
+    Decoder,
+    Encoder,
+    GroupNorm,
+    UNet2DModel,
+)
 from baddiffusion_tpu_torch.models.inception import FIDInceptionV3
 from baddiffusion_tpu_torch.ops import _build
-from baddiffusion_tpu_torch.pipelines import DiffusionPipeline, sample_chain
-from baddiffusion_tpu_torch.schedulers import DDPMConfig, DDPMScheduler, KarrasVeScheduler
+from baddiffusion_tpu_torch.pipelines import DiffusionPipeline, LDMPipeline, sample_chain
+from baddiffusion_tpu_torch.schedulers import DDPMConfig, DDPMScheduler, KarrasVeScheduler, ScoreSdeVeScheduler
 from baddiffusion_tpu_torch.training import (
+    create_score_train_state,
     create_train_state,
     finish_async_saves,
     load_trainer_state,
     make_optimizer,
     make_train_step,
+    make_ve_train_step,
     save_checkpoint,
     save_trainer_state,
     train_loop,
@@ -178,6 +219,22 @@ ATTN_SHAPES = {
     (2, 3, 100, 64): 0,
 }
 ATTN_SAMPLING = {(16, 64, 4, 8): 5, (16, 64, 1, 8): 1}  # a UNet forward at the sampling batch
+# phase 9's shapes, checked and timed in the dtype their path runs in (not
+# counted into the scratch UNet's per-forward sums): GroupNorm+SiLU (B, H, W,
+# C) of CompVis/ldm-celebahq-256's UNet at the sampling batch (group widths 7,
+# 14, 21, 28) and of its VQ-VAE's 256 px decoder stage, f32
+GN_LATENT_SHAPES = {(16, 64, 64, 224): torch.bfloat16, (16, 32, 32, 448): torch.bfloat16,
+                    (16, 16, 16, 672): torch.bfloat16, (16, 8, 8, 896): torch.bfloat16,
+                    (16, 256, 256, 128): torch.float32}
+# attention [B, H, T, D]: the VQ-VAE's mid block at the 64x64 latent (the
+# envelope's long end), timed in both dtypes; the LDM UNet's three attention
+# resolutions at B=16 (448, 672 and 896 channels in heads of 32), the same
+# resolutions with one level's fewer heads each, and NCSN++ 256 px at 16x16
+# and the score step's batch
+ATTN_LATENT_SHAPES = {(16, 1, 4096, 512): None, (16, 14, 1024, 32): torch.bfloat16,
+                      (16, 21, 256, 32): torch.bfloat16, (16, 28, 64, 32): torch.bfloat16,
+                      (16, 7, 1024, 32): torch.bfloat16, (16, 14, 256, 32): torch.bfloat16,
+                      (16, 21, 64, 32): torch.bfloat16, (4, 32, 256, 8): torch.bfloat16}
 GN_PER_FORWARD = sum(GN_SHAPES.values())
 ATTN_PER_FORWARD = sum(ATTN_SHAPES.values())
 TOL = {torch.float32: dict(atol=1e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
@@ -214,6 +271,14 @@ CLI_STEPS = 50  # DDIM steps of the grids and the measure (the reference measure
 CLI_MEASURE_N, CLI_EVAL_BATCH = 256, 128
 ANP_MEASURE_N, ANP_BUDGET = 128, 4.0
 INCEPTION_CHECK_SHAPE, INCEPTION_BATCH = (16, 32, 32, 3), 128
+# phase 9: LDM-CELEBA-HQ-256 and NCSN++ 256 px at full width, cut in depth; the (K1, K3) launches of one
+# call of each module, derived from the configs (two K1 a resnet, one a fused output norm, one K3 an attention)
+LDM_BATCH, LDM_STEPS, LDM_MEASURE_N, LDM_FAKE_SIZE = 16, 50, 64, 128
+GPU = "0"  # phase 9's command lines' --gpu
+LDM_KERNEL_CALLS = {"UNet2DModel": (45, 16), "Encoder": (17, 1), "Decoder": (23, 1)}
+NCSNPP_KERNEL_CALLS = (105, 4)
+NCSNPP_CHAIN_BATCH, NCSNPP_CHAIN_STEPS = 2, 10
+NCSNPP_TRAIN_BATCH, NCSNPP_TRAIN_STEPS, NCSNPP_LR = 4, 4, 2e-5  # the reference's 256 px scratch rate
 # kernel-name fragments -> the layer they belong to, for the device-time breakdown
 KERNEL_GROUPS = (
     ("groupnorm_silu (K1)", ("groupnorm_silu_fwd_kernel",)),
@@ -329,6 +394,28 @@ def sum_tol(ref: torch.Tensor) -> dict:
     return dict(atol=1e-4 * ref.abs().max().item(), rtol=0.0)
 
 
+def check_repeatable(what: str, first, again) -> None:
+    """``first`` (a tensor or a tuple of them) the same bits as ``again()``.
+    On a mismatch the differing elements and a third call are reported
+    before the failure, to tell an output that changed after it was made
+    from a kernel whose result varies."""
+    first = (first,) if torch.is_tensor(first) else tuple(first)
+    second = again()
+    second = (second,) if torch.is_tensor(second) else tuple(second)
+    if all(torch.equal(a, b) for a, b in zip(first, second)):
+        return
+    third = again()
+    third = (third,) if torch.is_tensor(third) else tuple(third)
+    for i, (a, b, c) in enumerate(zip(first, second, third)):
+        if torch.equal(a, b):
+            continue
+        idx = (a != b).nonzero()
+        print(f"   {what} output {i}: {idx.shape[0]} of {a.numel()} elements differ between two calls, max |d| "
+              f"{max_err(a, b):.3g}, first at {idx[0].tolist()}, last at {idx[-1].tolist()}; a third call equals "
+              f"the first: {torch.equal(a, c)}, the second: {torch.equal(b, c)}", flush=True)
+    raise SmokeFailure(f"{what}: output differs between two calls")
+
+
 def check_close(label: str, got, want, tols) -> float:
     """Every output within its tolerance; returns the largest abs error."""
     err = 0.0
@@ -373,23 +460,26 @@ class KernelRecord:
         self.times = {}  # label -> the bf16 kernel's device ms per call
 
     def shape(self, label: str, mult: int, dtype, kernel, plain, library, n_bytes: float, n_ops: float,
-              tols=None, n_exp: float = 0.0) -> tuple:
+              tols=None, n_exp: float = 0.0, time_dtype=torch.bfloat16, reps: int = 20) -> tuple:
         """``kernel`` and ``plain`` return a tensor or a tuple of them, each
-        held to its entry of ``tols`` (default ``TOL[dtype]``). Returns the
+        held to its entry of ``tols`` (default ``TOL[dtype]``). Times the
+        calls in ``time_dtype`` (the dtype the shape's path runs in), with
+        ``reps`` calls a window (fewer for the slowest shapes). Returns the
         kernel's outputs as a tuple."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
         e = check_close(f"{self.entry['name']} {label} {dtype} vs plain", got, want, tols or [TOL[dtype]] * len(got))
         self.err = max(self.err, e)
-        if dtype != torch.bfloat16:  # time the main path's dtype only
+        if dtype != time_dtype:  # time the path's dtype only
             return got
-        _, k_ms, kern, _ = device_profile(kernel)
+        _, k_ms, kern, _ = device_profile(kernel, reps)
         s_ms = sum(ms for key, ms in kern.items() if self.second and self.second in key)
-        k_wall, p_ms, l_ms = time_ms(kernel), device_ms(plain), device_ms(library)
+        k_wall = time_ms(kernel, reps=reps, repeats=5 if reps > 3 else 2)
+        p_ms, l_ms = device_ms(plain, reps), device_ms(library, reps)
         b_ms, b_by = bound_ms(n_bytes, n_ops, dtype, n_exp)
         second = f" ({self.second} {s_ms:.4f} of it)" if self.second else ""
-        print(f"   {label} x{mult:2d}  bf16 kernel {k_ms:.4f} ms{second} (per-call wall {k_wall:.4f})  "
+        print(f"   {label} x{mult:2d}  {str(dtype)[6:]} kernel {k_ms:.4f} ms{second} (per-call wall {k_wall:.4f})  "
               f"plain {p_ms:.4f} ms  {self.library} {l_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by}; kernel/bound "
               f"{k_ms / b_ms:.2f})  max err {e:.3g}")
         self.times[label] = k_ms
@@ -414,13 +504,13 @@ def check_k1_stats_and_repeatable(label: str, x, weight, bias) -> None:
     1e-6, rstd rtol 1e-5: f32 sums in another order), and its output and
     statistics the same bits over two calls, with and without statistics."""
     first = ops.groupnorm_silu_forward(x, weight, bias, GROUPS, EPS)
-    second = ops.groupnorm_silu_forward(x, weight, bias, GROUPS, EPS)
     mean, rstd = ops.groupnorm_stats_plain(x, GROUPS, EPS)
     check_close(f"K1 {label} {x.dtype} statistics vs plain", first[1:], (mean, rstd),
                 [dict(atol=1e-6, rtol=0.0), dict(atol=0.0, rtol=1e-5)])
-    check(all(torch.equal(a, b) for a, b in zip(first, second))
-          and torch.equal(ops.groupnorm_silu(x, weight, bias, GROUPS, EPS), first[0]),
-          f"K1 {label} {x.dtype}: output or statistics differ between two calls")
+    check_repeatable(f"K1 {label} {x.dtype} (output and statistics)", first,
+                     lambda: ops.groupnorm_silu_forward(x, weight, bias, GROUPS, EPS))
+    check_repeatable(f"K1 {label} {x.dtype} (output without statistics)", first[0],
+                     lambda: ops.groupnorm_silu(x, weight, bias, GROUPS, EPS))
 
 
 def plan_text(x, plan=ops.groupnorm_silu_plan) -> str:
@@ -469,6 +559,25 @@ def phase_groupnorm(dev, gen) -> dict:
         print(f"   {label} f32 and bf16 match the plain version, statistics and repeatability checked; bf16 kernel "
               f"{k_ms:.4f} ms; plan (bf16): {plan_text(x)}")
     print(f"   per UNet forward (B={SAMPLE_BATCH}, bf16, {GN_PER_FORWARD} calls): kernel {sampling_ms:.4f} ms")
+    print("   phase 9's shapes (the LDM UNet at B=16 in bf16, the VQ-VAE's 256 px stage in f32):")
+    for (b, h, w, c), time_dtype in GN_LATENT_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, weight, bias = gn_inputs(dev, gen, h, w, c, dtype, batch=b)
+            x_nchw = x.permute(0, 3, 1, 2)
+            w_lib, b_lib = weight.to(dtype), bias.to(dtype)
+            label = f"B={b} ({h},{w},{c})"
+            if dtype == time_dtype:
+                print(f"   {label} plan ({str(dtype)[6:]}): {plan_text(x)}")
+            rec.shape(
+                label, 0, dtype,
+                lambda: ops.groupnorm_silu(x, weight, bias, GROUPS, EPS),
+                lambda: ops.groupnorm_silu_plain(x, weight, bias, GROUPS, EPS),
+                lambda: F.silu(F.group_norm(x_nchw, GROUPS, w_lib, b_lib, EPS)),
+                n_bytes=2 * x.numel() * x.element_size() + 2 * c * 4,
+                n_ops=GN_FLOPS_PER_ELEMENT * x.numel(), time_dtype=time_dtype,
+            )
+            check_k1_stats_and_repeatable(label, x, weight, bias)
+            del x, x_nchw
     return rec.summary(GN_PER_FORWARD)
 
 
@@ -484,9 +593,8 @@ def check_k2_autograd_and_repeatable(label: str, x, weight, bias, ct, got) -> No
     """K2's outputs ``got`` against autograd through ``groupnorm_silu_plain``,
     and dx, dγ, dβ the same bits on a second call."""
     _, mean, rstd = ops.groupnorm_silu_forward(x, weight, bias, GROUPS, EPS)
-    again = ops.groupnorm_silu_backward(x, weight, bias, mean, rstd, ct, GROUPS)
-    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          f"K2 {label} {x.dtype}: dx, dγ or dβ differ between two calls")
+    check_repeatable(f"K2 {label} {x.dtype} (dx, dγ, dβ)", got,
+                     lambda: ops.groupnorm_silu_backward(x, weight, bias, mean, rstd, ct, GROUPS))
     xr, wr, br = (a.detach().clone().requires_grad_() for a in (x, weight, bias))
     auto = torch.autograd.grad(ops.groupnorm_silu_plain(xr, wr, br, GROUPS, EPS), (xr, wr, br), ct)
     dx_tol = (dict(atol=1e-4 * auto[0].abs().max().item(), rtol=1e-4) if x.dtype == torch.float32
@@ -506,34 +614,7 @@ def phase_groupnorm_backward(dev, gen) -> dict:
                        per="train step", second="sum_rows_kernel")
     for (h, w, c), mult in GN_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
-            x, weight, bias = gn_inputs(dev, gen, h, w, c, dtype)
-            ct = torch.randn(BATCH, h, w, c, generator=gen, device=dev).to(dtype)
-            _, mean, rstd = ops.groupnorm_silu_forward(x, weight, bias, GROUPS, EPS)
-            label = f"({h:2d},{w:2d},{c:4d})"
-            if dtype == torch.bfloat16:
-                print(f"   {label} plan: {plan_text(x, ops.groupnorm_silu_backward_plan)}")
-
-            def kernel():
-                return ops.groupnorm_silu_backward(x, weight, bias, mean, rstd, ct, GROUPS)
-
-            def plain():
-                return ops.groupnorm_silu_backward_plain(x, weight, bias, mean, rstd, ct, GROUPS)
-
-            # the library call: autograd through torch's group_norm + silu, graph retained
-            xl = x.clone().requires_grad_()
-            wl, bl = (p.to(dtype).requires_grad_() for p in (weight, bias))
-            y_lib = F.silu(F.group_norm(xl.permute(0, 3, 1, 2), GROUPS, wl, bl, EPS))
-            ct_nchw = ct.permute(0, 3, 1, 2)
-            ref = plain()
-            got = rec.shape(
-                label, mult, dtype, kernel, plain,
-                lambda: torch.autograd.grad(y_lib, (xl, wl, bl), ct_nchw, retain_graph=True),
-                n_bytes=3 * x.numel() * x.element_size() + 4 * c * 4 + 2 * BATCH * GROUPS * 4,
-                n_ops=GN_BWD_FLOPS_PER_ELEMENT * x.numel(),
-                tols=[TOL[dtype], sum_tol(ref[1]), sum_tol(ref[2])],
-            )
-            check_k2_autograd_and_repeatable(label, x, weight, bias, ct, got)
-            del xl, wl, bl, y_lib, ref, got
+            k2_shape(rec, dev, gen, BATCH, h, w, c, dtype, f"({h:2d},{w:2d},{c:4d})", mult, torch.bfloat16)
     # a slab too large to stage (two walks over x and the cotangent): checked, and the bf16 kernel's device time
     b, (h, w, c) = 2, (128, 128, 128)
     label = f"B={b} ({h},{w},{c})"
@@ -549,7 +630,43 @@ def phase_groupnorm_backward(dev, gen) -> dict:
     k_ms = device_ms(lambda: ops.groupnorm_silu_backward(x, weight, bias, mean, rstd, ct, GROUPS))
     print(f"   {label} f32 and bf16 match the plain version and autograd, repeatability checked; bf16 kernel "
           f"{k_ms:.4f} ms; plan (bf16): {plan_text(x, ops.groupnorm_silu_backward_plan)}")
+    del x, ct, got, ref
+    print("   phase 9's shapes (the LDM UNet at B=16 in bf16, the VQ-VAE's 256 px stage in f32):")
+    for (b, h, w, c), time_dtype in GN_LATENT_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            k2_shape(rec, dev, gen, b, h, w, c, dtype, f"B={b} ({h},{w},{c})", 0, time_dtype)
     return rec.summary(GN_PER_FORWARD)
+
+
+def k2_shape(rec, dev, gen, b: int, h: int, w: int, c: int, dtype, label: str, mult: int, time_dtype) -> None:
+    """K2 at one shape: against its plain twin (timed in ``time_dtype``),
+    autograd and itself over two calls."""
+    x, weight, bias = gn_inputs(dev, gen, h, w, c, dtype, batch=b)
+    ct = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
+    _, mean, rstd = ops.groupnorm_silu_forward(x, weight, bias, GROUPS, EPS)
+    if dtype == time_dtype:
+        print(f"   {label} plan ({str(dtype)[6:]}): {plan_text(x, ops.groupnorm_silu_backward_plan)}")
+
+    def kernel():
+        return ops.groupnorm_silu_backward(x, weight, bias, mean, rstd, ct, GROUPS)
+
+    def plain():
+        return ops.groupnorm_silu_backward_plain(x, weight, bias, mean, rstd, ct, GROUPS)
+
+    # the library call: autograd through torch's group_norm + silu, graph retained
+    xl = x.clone().requires_grad_()
+    wl, bl = (p.to(dtype).requires_grad_() for p in (weight, bias))
+    y_lib = F.silu(F.group_norm(xl.permute(0, 3, 1, 2), GROUPS, wl, bl, EPS))
+    ct_nchw = ct.permute(0, 3, 1, 2)
+    ref = plain()
+    got = rec.shape(
+        label, mult, dtype, kernel, plain,
+        lambda: torch.autograd.grad(y_lib, (xl, wl, bl), ct_nchw, retain_graph=True),
+        n_bytes=3 * x.numel() * x.element_size() + 4 * c * 4 + 2 * b * GROUPS * 4,
+        n_ops=GN_BWD_FLOPS_PER_ELEMENT * x.numel(),
+        tols=[TOL[dtype], sum_tol(ref[1]), sum_tol(ref[2])], time_dtype=time_dtype,
+    )
+    check_k2_autograd_and_repeatable(label, x, weight, bias, ct, got)
 
 
 def phase_attention(dev, gen) -> dict:
@@ -574,11 +691,27 @@ def phase_attention(dev, gen) -> dict:
                 n_ops=4 * b * h * t * t * d,  # the q·k and p·v products
                 n_exp=b * h * t * t,  # one exponential a score
             )
-            check(torch.equal(first, ops.attention(q, k, v, scale)),
-                  f"K3 {label} {dtype}: output differs between two calls")
+            check_repeatable(f"K3 {label} {dtype}", first, lambda: ops.attention(q, k, v, scale))
     sampling_ms = sum(mult * rec.times[f"[{b},{h},{t},{d}]"] for (b, h, t, d), mult in ATTN_SAMPLING.items())
     print(f"   per UNet forward (B={SAMPLE_BATCH}, bf16, {sum(ATTN_SAMPLING.values())} calls): kernel "
           f"{sampling_ms:.4f} ms")
+    print("   phase 9's shapes (the VQ-VAE's T = 4096 head timed in both dtypes, 3 calls a window; the rest bf16):")
+    for (b, h, t, d), time_dtype in ATTN_LATENT_SHAPES.items():
+        scale = 1.0 / d**0.5
+        label = f"[{b},{h},{t},{d}]"
+        for dtype in (torch.float32, torch.bfloat16):
+            print(f"   {label} {str(dtype)[6:]} plan: {ops.attention_plan(b * h, t, d, dtype)}")
+            q, k, v = (torch.randn(b, h, t, d, generator=gen, device=dev).to(dtype) for _ in range(3))
+            (first,) = rec.shape(
+                label, 0, dtype,
+                lambda: ops.attention(q, k, v, scale),
+                lambda: ops.attention_plain(q, k, v, scale),
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                n_bytes=4 * q.numel() * q.element_size(), n_ops=4 * b * h * t * t * d, n_exp=b * h * t * t,
+                time_dtype=dtype if time_dtype is None else time_dtype, reps=3 if t == 4096 else 20,
+            )
+            check_repeatable(f"K3 {label} {dtype}", first, lambda: ops.attention(q, k, v, scale))
+            del q, k, v, first
     return rec.summary(ATTN_PER_FORWARD)
 
 
@@ -1430,6 +1563,268 @@ def phase_cli(dev, smi: str) -> tuple:
     return steps, sampled, counts
 
 
+def kernel_calls(module) -> tuple:
+    """(K1, K3) launches one call of ``module`` makes, from its built
+    modules: each GroupNorm that fuses its SiLU runs K1 once, each attention
+    block K3 once."""
+    return (sum(isinstance(m, GroupNorm) and m.silu for m in module.modules()),
+            sum(isinstance(m, AttentionBlock) for m in module.modules()))
+
+
+class CallCounter:
+    """Counts calls on the card of the given module classes (forward
+    pre-hooks on every module), by class name, while it is entered."""
+
+    def __init__(self, *classes):
+        self.classes = classes
+        self.counts = {c.__name__: 0 for c in classes}
+
+    def _hook(self, module, args):
+        if isinstance(module, self.classes) and torch.is_tensor(args[0]) and args[0].is_cuda:
+            self.counts[type(module).__name__] += 1
+
+    def __enter__(self):
+        self.handle = torch.nn.modules.module.register_module_forward_pre_hook(self._hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+
+def want_launches(calls: dict, per: dict, steps: int = 0, step_k1: int = 0, step_k3: int = 0) -> dict:
+    """The launch counts a run should show: ``per[name] = (K1, K3)`` for each
+    counted module call, and ``steps`` train steps of ``step_k1`` K1 (each
+    with its K2) and ``step_k3`` K3."""
+    k1 = sum(n * per[name][0] for name, n in calls.items()) + steps * step_k1
+    k3 = sum(n * per[name][1] for name, n in calls.items()) + steps * step_k3
+    return {"groupnorm_silu": k1, "groupnorm_silu_backward": steps * step_k1, "attention": k3}
+
+
+def check_card_vs_cpu(label: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    scale = want.abs().max().item()
+    e = max_err(got.cpu(), want)
+    check(got.shape == want.shape and torch.allclose(got.cpu(), want, rtol=1e-3, atol=1e-3 * scale),
+          f"{label} card vs CPU: max err {e:.3g} (|y| max {scale:.3g})")
+    print(f"   {label}, card vs CPU plain path: max err {e:.3g}, |y| max {scale:.3g} (rtol 1e-3, atol 1e-3*max|y|)")
+
+
+def phase_latent(dev, smi: str) -> tuple:
+    """Phase 9: (a) the LDM-CELEBA-HQ-256 path at full width, staged and
+    reloaded through the factory, checked card against CPU, then bf16 DDIM
+    chains from pixel noise (+ trigger) and the CLI's sampling and measure
+    modes on the staged run dir; (b) NCSN++ 256 px: a forward card against
+    CPU, an SDE-VE chain and VE score steps. Launch counters set to 0 just
+    before each counted window and read just after. Returns [(path, what ran,
+    counts, wanted counts)]."""
+    print(f"-- phase 9 (a): LDM-CELEBA-HQ-256 at full width (UNet {mc.LDM_CELEBA_HQ_256_UNET.block_out_channels} at "
+          f"64 px, VQ-VAE {mc.LDM_CELEBA_HQ_256_VQ.block_out_channels} at 256 px, "
+          f"{mc.LDM_CELEBA_HQ_256_VQ.num_vq_embeddings} codes), seeded weights; {LDM_STEPS}-step chains and measure "
+          "(the reference measures with 1000 steps: a cut in depth)")
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    px, lat = mc.LDM_CELEBA_HQ_256_VQ.sample_size, mc.LDM_CELEBA_HQ_256_UNET.sample_size
+    os.makedirs(TMP_BASE, exist_ok=True)
+    root = tempfile.mkdtemp(dir=TMP_BASE)
+    cwd = os.getcwd()
+    runs = []
+    try:
+        run = os.path.join(root, "ldm_run")
+        t0 = time.perf_counter()
+        staged = mc.stage_ldm(run, device=dev, fake_size=LDM_FAKE_SIZE)
+        stage_s = time.perf_counter() - t0
+        unet, sched, get_pipeline = factory.get_pretrained(run, dtype=torch.float32, device=dev)
+        pipe = get_pipeline(sched, device=dev)
+        check(isinstance(pipe, LDMPipeline) and sched.config == mc.LDM_CELEBA_HQ_256_SCHEDULER,
+              f"factory.get_pretrained on the LDM dir gave {type(pipe).__name__}, {sched.config}")
+        for name, a, b in (("unet", staged.unet, pipe.unet), ("vqvae", staged.vqvae, pipe.vqvae)):
+            sd_a, sd_b = a.state_dict(), b.state_dict()
+            check(sd_a.keys() == sd_b.keys() and all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a),
+                  f"{name} weights changed through stage_ldm/get_pretrained")
+        del staged
+        per = {"UNet2DModel": kernel_calls(pipe.unet), "Encoder": kernel_calls(pipe.vqvae.encoder),
+               "Decoder": kernel_calls(pipe.vqvae.decoder)}
+        check(per == LDM_KERNEL_CALLS, f"LDM kernel calls per module call {per}, designed {LDM_KERNEL_CALLS}")
+        n_unet = sum(p.numel() for p in pipe.unet.parameters())
+        n_vq = sum(p.numel() for p in pipe.vqvae.parameters())
+        print(f"   staged ({stage_s:.1f} s) and reloaded through factory.get_pretrained, weights exact: UNet {n_unet} "
+              f"and VQ-VAE {n_vq} parameters; (K1, K3) a call: {per}")
+
+        # f32 on the card against the CPU's plain path, B=1
+        cpu = LDMPipeline.from_pretrained(run, device="cpu")
+        g = torch.Generator().manual_seed(91)
+        codebook = cpu.vqvae.quantize.embedding.weight.detach()
+        idx = torch.randint(0, codebook.shape[0], (1, lat, lat), generator=g)
+        # codebook rows, nudged: the nearest row is the same on both sides
+        latents = codebook[idx] + 1e-3 * torch.randn(1, lat, lat, 3, generator=g)
+        x_pix = torch.randn(1, px, px, 3, generator=g)
+        x_lat, t = torch.randn(1, lat, lat, 3, generator=g), torch.tensor([500])
+        with torch.inference_mode():
+            check_card_vs_cpu("f32 VQ decode B=1", pipe.decode(latents.to(dev)), cpu.decode(latents))
+            check_card_vs_cpu("f32 VQ encode B=1", pipe.encode(x_pix.to(dev)), cpu.encode(x_pix))
+            check_card_vs_cpu("f32 LDM UNet forward B=1", pipe.unet(x_lat.to(dev), t.to(dev)), cpu.unet(x_lat, t))
+        del cpu
+
+        # the chains: bf16 UNet, f32 VQ-VAE, from pixel noise and noise + trigger
+        pipe.compute_dtype = torch.bfloat16
+        gen = torch.Generator(dev).manual_seed(92)
+        noise = torch.randn(pipe.sample_shape(LDM_BATCH), generator=gen, device=dev)
+        trigger = torch.from_numpy(Backdoor().get_trigger("BOX_14", 3, px)).to(dev)
+        pipe(init=noise[:2], num_inference_steps=2)  # warm-up: first bf16 calls set up cuDNN/cuBLAS
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with CallCounter(UNet2DModel, Encoder, Decoder) as calls:
+            chain_s = []
+            for name, init in (("clean", noise), ("backdoor", noise + trigger[None])):
+                t0 = time.perf_counter()
+                out = pipe(init=init, generator=gen, num_inference_steps=LDM_STEPS, output_type="pt")
+                torch.cuda.synchronize()
+                chain_s.append(time.perf_counter() - t0)
+                imgs = out.images
+                check(tuple(imgs.shape) == (LDM_BATCH, px, px, 3), f"LDM {name} images {tuple(imgs.shape)}")
+                check(bool(torch.isfinite(out.sample).all()) and imgs.min().item() >= 0.0 and imgs.max().item() <= 1.0,
+                      f"LDM {name}: decoded sample not finite or images outside [0, 1]")
+        counts = ops.launch_counts()
+        want_calls = {"UNet2DModel": 2 * LDM_STEPS, "Encoder": 2, "Decoder": 2}
+        check(calls.counts == want_calls, f"LDM chains made {calls.counts}, designed {want_calls}")
+        runs.append(("LDM chains", f"{calls.counts} calls", counts, want_launches(calls.counts, per)))
+        peak_chain = torch.cuda.max_memory_allocated() / 2**30
+        with torch.inference_mode():
+            lat16 = pipe.encode(noise)
+            enc_ms = time_ms(lambda: pipe.encode(noise), reps=2, repeats=2)
+            dec_ms = time_ms(lambda: pipe.decode(lat16), reps=2, repeats=2)
+            unet_bf16 = pipe.unet.compute_copy(torch.bfloat16)
+            tb = torch.full((LDM_BATCH,), 500, device=dev)
+            fwd_ms = time_ms(lambda: unet_bf16(lat16, tb), reps=10, repeats=3)
+        del unet_bf16
+        for name, s_ in zip(("clean", "backdoor"), chain_s):
+            print(f"   {LDM_STEPS}-step bf16 DDIM chain B={LDM_BATCH}, {name} (pixel init encoded, latents decoded): "
+                  f"{s_:.3f} s, {LDM_BATCH / s_:.3f} imgs/s, {(s_ * 1e3 - enc_ms - dec_ms) / LDM_STEPS:.3f} ms a chain "
+                  f"step (wall less one encode and one decode) on {smi}")
+        print(f"   B={LDM_BATCH}: VQ encode f32 {enc_ms:.3f} ms, VQ decode f32 {dec_ms:.3f} ms, bf16 UNet forward "
+              f"{fwd_ms:.3f} ms (CUDA events); peak device memory of the chains {peak_chain:.1f} GiB on {smi}")
+
+        # the CLI on the staged run dir: sampling (grids), then measure (64 + 64 images)
+        os.environ["WANDB_MODE"] = "disabled"
+        os.chdir(root)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with CallCounter(UNet2DModel, Encoder, Decoder) as calls:
+            cli.main(["--mode", "sampling", "--ckpt", run, "--gpu", GPU, "--sampling_steps", str(LDM_STEPS)])
+            t_sampling = time.perf_counter() - t0
+            cli.main(["--mode", "measure", "--ckpt", run, "--gpu", GPU, "--measure_sample_n", str(LDM_MEASURE_N),
+                      "--eval_max_batch", str(LDM_MEASURE_N), "--measure_steps", str(LDM_STEPS)])
+        torch.cuda.synchronize()
+        wall_cli = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        os.chdir(cwd)
+        for sub in ("samples", "backdoor_samples"):
+            check(os.path.exists(os.path.join(run, sub, "epfinal_noclip.png")), f"LDM cli sampling: {sub} grid")
+        n_png = {sub: count_pngs(os.path.join(run, "measure", sub)) for sub in ("clean_noclip", "backdoor_noclip")}
+        n_png["real"] = count_pngs(os.path.join(root, "measure", "FAKE"))
+        check(set(n_png.values()) == {LDM_MEASURE_N}, f"LDM cli measure: PNGs {n_png}")
+        score = read_json(os.path.join(run, "score.json"))
+        check(set(score) == {"FID_proxy_noclip", "MSE_noclip", "SSIM_noclip"}
+              and all(np.isfinite(v) for v in score.values()) and -1.0 <= score["SSIM_noclip"] <= 1.0,
+              f"LDM cli measure: score.json {score}")
+        # sampling: two 16-image chains, each decoding its 10 movie frames and its result; measure: two 64-image
+        # chains; every chain encodes its pixel init once
+        want_calls = {"UNet2DModel": 4 * LDM_STEPS, "Encoder": 4, "Decoder": 2 * 11 + 2}
+        check(calls.counts == want_calls, f"LDM cli made {calls.counts}, designed {want_calls}")
+        runs.append(("LDM CLI", f"{calls.counts} calls", counts, want_launches(calls.counts, per)))
+        print(f"   cli --mode sampling ({t_sampling:.1f} s) and --mode measure {LDM_MEASURE_N} + {LDM_MEASURE_N} "
+              f"images, f32 chains without TF32 ({wall_cli - t_sampling:.1f} s); PNGs {n_png}; score.json {score}")
+        del pipe, unet, get_pipeline
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+        if not os.listdir(TMP_BASE):
+            os.rmdir(TMP_BASE)
+    print(f"   phase 9 (a) took {time.perf_counter() - phase_t0:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi}")
+
+    cfg = mc.NCSNPP_CELEBA_HQ_256
+    print(f"-- phase 9 (b): NCSN++ (google/ncsnpp-celebahq-256) at full width, {cfg.block_out_channels} at 256 px, "
+          f"seeded weights; a {NCSNPP_CHAIN_STEPS}-step SDE-VE chain (its default is 2000: a cut in depth) and "
+          f"{NCSNPP_TRAIN_STEPS} VE score steps")
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    unet = UNet2DModel(cfg, device=dev, generator=torch.Generator().manual_seed(93))
+    per = {"UNet2DModel": kernel_calls(unet)}
+    check(per["UNet2DModel"] == NCSNPP_KERNEL_CALLS, f"NCSN++ (K1, K3) a forward {per}, designed {NCSNPP_KERNEL_CALLS}")
+    cpu_unet = UNet2DModel(cfg, device="cpu")
+    cpu_unet.load_state_dict(unet.state_dict())
+    g = torch.Generator().manual_seed(94)
+    size = cfg.sample_size
+    x, sigma = torch.randn(1, size, size, 3, generator=g), torch.tensor([7.5])
+    with torch.inference_mode():
+        check_card_vs_cpu("f32 NCSN++ forward B=1", unet(x.to(dev), sigma.to(dev)), cpu_unet(x, sigma))
+    del cpu_unet
+
+    sde = ScoreSdeVeScheduler()
+    chain_pipe = DiffusionPipeline(unet, sde, default_inference_steps=2000, hf_class_name="ScoreSdeVePipeline",
+                                   compute_dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(dev).manual_seed(95)
+    chain_pipe(batch_size=NCSNPP_CHAIN_BATCH, generator=gen, num_inference_steps=1)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with CallCounter(UNet2DModel) as calls:
+        t0 = time.perf_counter()
+        out = chain_pipe(batch_size=NCSNPP_CHAIN_BATCH, generator=gen, num_inference_steps=NCSNPP_CHAIN_STEPS,
+                         output_type="pt")
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    imgs = out.images
+    check(bool(torch.isfinite(out.sample).all()) and imgs.min().item() >= 0.0 and imgs.max().item() <= 1.0
+          and tuple(imgs.shape) == (NCSNPP_CHAIN_BATCH, size, size, 3), "NCSN++ SDE-VE chain: sample not finite")
+    want_calls = {"UNet2DModel": NCSNPP_CHAIN_STEPS * (sde.config.correct_steps + 1)}
+    check(calls.counts == want_calls, f"NCSN++ chain made {calls.counts}, designed {want_calls}")
+    runs.append(("NCSN++ SDE-VE chain", f"{calls.counts} calls", counts, want_launches(calls.counts, per)))
+    print(f"   {NCSNPP_CHAIN_STEPS}-step bf16 SDE-VE chain B={NCSNPP_CHAIN_BATCH}: {chain_s:.3f} s, "
+          f"{chain_s / NCSNPP_CHAIN_STEPS * 1e3:.3f} ms a step ({sde.config.correct_steps + 1} forwards), "
+          f"|sample| max {out.sample.abs().max().item():.4g} before the clip, on {smi}")
+    del chain_pipe, out, unet
+
+    model = UNet2DModel(cfg, device=dev, generator=torch.Generator().manual_seed(96), dtype=torch.bfloat16)
+    optimizer, _ = make_optimizer(NCSNPP_LR, num_warmup_steps=0, num_training_steps=1000)
+    state = create_score_train_state(model, optimizer)
+    step = make_ve_train_step(model, optimizer, sde.create_state().discrete_sigmas, device=dev)
+    rng = np.random.RandomState(97)
+    images = [torch.from_numpy((rng.rand(NCSNPP_TRAIN_BATCH, size, size, 3) * 255).astype(np.uint8)).to(dev)
+              for _ in range(NCSNPP_TRAIN_STEPS + 1)]
+    gen = torch.Generator(dev).manual_seed(98)
+    step(state, images[0], gen)  # warm-up step
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    records, metrics = [], []
+    with CallCounter(UNet2DModel) as calls:
+        for img in images[1:]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, img, gen)
+            end.record()
+            records.append((start, end))
+            metrics.append(m)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    check(bool(np.isfinite(losses + norms).all()) and state.step == NCSNPP_TRAIN_STEPS + 1,
+          f"NCSN++ score steps: losses {losses}, grad norms {norms}")
+    check(calls.counts == {"UNet2DModel": NCSNPP_TRAIN_STEPS}, f"NCSN++ score steps made {calls.counts}")
+    k1, k3 = per["UNet2DModel"]
+    runs.append(("NCSN++ score steps", f"{NCSNPP_TRAIN_STEPS} steps", counts,
+                 want_launches({}, per, NCSNPP_TRAIN_STEPS, k1, k3)))
+    step_ms = [s_.elapsed_time(e) for s_, e in records]
+    print(f"   VE score steps B={NCSNPP_TRAIN_BATCH} (bf16 compute, f32 parameters, Adam lr {NCSNPP_LR}): losses "
+          f"{[round(v, 4) for v in losses]}, grad norms {[round(v, 4) for v in norms]}; median "
+          f"{statistics.median(step_ms):.3f} ms a step (CUDA events, start to end) on {smi}")
+    print(f"   phase 9 (b) took {time.perf_counter() - phase_t0:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi}")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs only on a GPU", file=sys.stderr)
@@ -1444,6 +1839,7 @@ def main() -> int:
     steps, training, bare_ms = phase_train(dev, smi)
     loop_steps, loop_sampled, trainer_counts = phase_trainer(dev, smi, bare_ms)
     cli_steps, cli_sampled, cli_counts = phase_cli(dev, smi)
+    latent_runs = phase_latent(dev, smi)
 
     for path, n, counts, want in (
         ("sampling", f"{forwards} UNet forwards", sampling,
@@ -1463,13 +1859,14 @@ def main() -> int:
          {"groupnorm_silu": GN_PER_FORWARD * (cli_steps + cli_sampled),
           "groupnorm_silu_backward": GN_PER_FORWARD * cli_steps,
           "attention": ATTN_PER_FORWARD * (cli_steps + cli_sampled)}),
+        *latent_runs,
     ):
         print(f"launch counts over the {path} path ({n} on the card): "
               + ", ".join(f"{k}={v}" for k, v in counts.items()))
         check(counts == want and counts["groupnorm_silu"] > 0, f"{path} launches {counts}, want {want}")
     for k in kernels:
         k["launches"] = (sampling[k["name"]] + zoo[k["name"]] + training[k["name"]] + trainer_counts[k["name"]]
-                         + cli_counts[k["name"]])
+                         + cli_counts[k["name"]] + sum(counts[k["name"]] for _, _, counts, _ in latent_runs))
     print(f"chip_smoke: every check passed in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

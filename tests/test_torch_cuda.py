@@ -280,11 +280,14 @@ def test_groupnorm_silu_gradient_equals_autograd_through_plain(dev, dtype):
 # with a partial last K/V tile, the longest T (rowwise in f32; in bf16 the
 # first four and the last are tiled); then the packed plan (the UNet's 4- and
 # 1-token calls, T = 16 at D = 32, D = 24) and the tiled plan in bf16 at
-# D = 8, 16, 64, 128 and 256, ragged T, T = 1 and T = 1024
+# D = 8, 16, 64, 128 and 256, ragged T, T = 1 and T = 1024; then the
+# envelope's long end, T = 4096: the VQ-VAE's one 512-wide head (rowwise in
+# both dtypes), and D = 8, 64 and 256 (tiled in bf16)
 ATTN_CASES = [(2, 3, 17, 8), (1, 2, 33, 16), (2, 3, 17, 24), (2, 2, 7, 40), (1, 1, 1000, 512), (1, 2, 1024, 8),
               (2, 64, 4, 8), (2, 64, 1, 8), (3, 5, 16, 32), (1, 2, 7, 24),
               (2, 4, 256, 8), (2, 3, 40, 16), (2, 3, 100, 64), (1, 2, 64, 128), (2, 1, 256, 256), (1, 1, 16, 256),
-              (1, 2, 1, 256), (1, 2, 1024, 64)]
+              (1, 2, 1, 256), (1, 2, 1024, 64),
+              (1, 1, 4096, 512), (1, 2, 4096, 8), (1, 2, 4096, 64), (1, 1, 4096, 256), (1, 1, 4095, 136)]
 
 
 def _qkv(shape, dtype, dev, seed=None):
@@ -305,7 +308,9 @@ def test_attention_kernel_matches_plain(dev, shape, dtype):
 ATTN_PLAN_CASES = [((128, 64, 4, 8), torch.bfloat16, "packed"), ((16, 64, 1, 8), torch.float32, "packed"),
                    ((4, 64, 256, 8), torch.bfloat16, "tiled"), ((2, 3, 100, 64), torch.bfloat16, "tiled"),
                    ((16, 1, 256, 256), torch.bfloat16, "tiled"), ((4, 8, 1024, 64), torch.bfloat16, "tiled"),
-                   ((2, 1, 256, 512), torch.bfloat16, "rowwise"), ((2, 3, 100, 64), torch.float32, "rowwise")]
+                   ((2, 1, 256, 512), torch.bfloat16, "rowwise"), ((2, 3, 100, 64), torch.float32, "rowwise"),
+                   ((2, 1, 4096, 512), torch.float32, "rowwise"), ((2, 1, 4096, 512), torch.bfloat16, "rowwise"),
+                   ((2, 2, 4096, 32), torch.bfloat16, "tiled")]
 
 
 @pytest.mark.parametrize("shape,dtype,variant", ATTN_PLAN_CASES)
@@ -355,10 +360,13 @@ def test_attention_kernel_refuses_a_plan_that_does_not_fit(dev):
             bad += [dict(dtype_code=0), dict(key_tile=plan.key_tile // 2), dict(rows=48, threads=96)]
         for change in bad:
             assert call(q, plan, **{"dtype_code": code, **change})[0] != 0, (shape, change)
+    # past the envelope's long end, with the plan of T = 4096
+    q = torch.zeros(1, 1, 4097, 8, device=dev)
+    assert call(q, ops.attention_plan(1, 4096, 8, torch.float32), 0)[0] != 0
 
 
 def test_attention_wrapper_refuses_outside_the_envelope(dev):
-    for shape in [(1, 1, 1025, 8), (1, 1, 4, 4), (1, 1, 4, 12), (1, 1, 4, 520)]:
+    for shape in [(1, 1, 4097, 8), (1, 1, 4097, 512), (1, 1, 4, 4), (1, 1, 4, 12), (1, 1, 4, 520)]:
         q = torch.zeros(shape, device=dev)
         with pytest.raises(ValueError, match="envelope"):
             ops.attention(q, q, q, 1.0)

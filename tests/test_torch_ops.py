@@ -202,6 +202,12 @@ ATTN_PLAN_CASES = [
     ((4, 64, 256, 8), "tiled"), ((4, 64, 64, 8), "tiled"), ((16, 1, 256, 256), "tiled"), ((16, 1, 16, 256), "tiled"),
     ((2, 1, 256, 512), "rowwise"), ((4, 8, 1024, 64), "tiled"), ((1, 1, 1024, 512), "rowwise"),
     ((2, 3, 100, 64), "tiled"), ((1, 1, 8, 40), "tiled"), ((2, 3, 40, 16), "tiled"), ((1, 2, 33, 16), "tiled"),
+    # the VQ-VAE's mid block at LDM-CELEBA-HQ-256's 64x64 latent (the envelope's long end), the LDM UNet's
+    # three attention resolutions at the sampling batch, NCSN++ 256 px at 16x16 and 4x4, and T = 4096 at
+    # every tiled depth
+    ((16, 1, 4096, 512), "rowwise"), ((16, 14, 1024, 32), "tiled"), ((16, 21, 256, 32), "tiled"),
+    ((16, 28, 64, 32), "tiled"), ((2, 32, 256, 8), "tiled"), ((2, 32, 16, 8), "packed"), ((1, 2, 4096, 8), "tiled"),
+    ((1, 1, 4096, 64), "tiled"), ((1, 1, 4096, 256), "tiled"), ((1, 1, 4093, 136), "tiled"),
 ]
 
 
@@ -246,7 +252,7 @@ def test_attention_plan_runs_every_longer_bf16_call_on_the_tensor_cores():
     """Every bf16 call with 16 < T and D <= 256 takes the tiled plan with
     64-row blocks, and every call with T <= 16 and D <= 32 the packed one,
     in both dtypes."""
-    for t in range(17, 1025):
+    for t in list(range(17, 1025)) + list(range(1025, 4097, 61)) + [4096]:
         for d in ((8, 64, 256) if t % 97 else range(8, 264, 8)):
             plan = ops.attention_plan(3, t, d, torch.bfloat16)
             assert plan.variant == "tiled" and plan.rows == 64, (t, d, plan)
@@ -257,7 +263,7 @@ def test_attention_plan_runs_every_longer_bf16_call_on_the_tensor_cores():
 
 
 def test_attention_plan_refuses_outside_the_envelope():
-    for t, d in ((1025, 8), (0, 8), (4, 4), (4, 12), (4, 520)):
+    for t, d in ((4097, 8), (4097, 512), (0, 8), (4, 4), (4, 12), (4, 520)):
         with pytest.raises(ValueError, match="envelope"):
             ops.attention_plan(1, t, d, torch.bfloat16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):

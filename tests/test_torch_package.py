@@ -30,7 +30,8 @@ TINY = UNet2DConfig(
 
 
 def _sources():
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "time_attention.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "time_attention.py"),
+             os.path.join(ROOT, "scripts", "check_repeatable.py")]
     for dirpath, _, names in os.walk(PACKAGE_DIR):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -63,12 +64,15 @@ ZOO_MODULES = ("schedulers.ddim", "schedulers.dpmsolver", "schedulers.deis", "sc
 # the command lines, the measure and the defense, likewise
 CLI_MODULES = ("config", "cli", "anp_cli", "metrics._prng", "metrics.image", "metrics.fid", "models.inception",
                   "defense.anp", "io.hf", "device")
+# the latent-diffusion path, the NCSN++ blocks and score matching, likewise
+LATENT_MODULES = ("models.vae", "models.blocks", "models.resnet", "pipelines.ldm", "training.score_matching",
+                  "model_configs")
 
 
 def test_every_module_imports_without_nvcc_or_a_gpu():
     names = [m.name for m in pkgutil.walk_packages([PACKAGE_DIR], prefix="baddiffusion_tpu_torch.")]
     assert "baddiffusion_tpu_torch.ops._build" in names and "baddiffusion_tpu_torch.pipelines.pipeline" in names
-    for modules in (TRAINER_MODULES, ZOO_MODULES, CLI_MODULES):
+    for modules in (TRAINER_MODULES, ZOO_MODULES, CLI_MODULES, LATENT_MODULES):
         assert {f"baddiffusion_tpu_torch.{m}" for m in modules} <= set(names)
         checked = {os.path.relpath(p, PACKAGE_DIR) for p in _sources()}
         assert {m.replace(".", os.sep) + ".py" for m in modules} <= checked
@@ -80,7 +84,7 @@ def test_new_modules_load_no_jax_in_a_fresh_interpreter():
     """Importing each command-line, metric and defense module (and the package's
     entry points) in a fresh interpreter leaves no JAX, flax, optax or
     ``baddiffusion_tpu`` module in ``sys.modules``."""
-    names = [f"baddiffusion_tpu_torch.{m}" for m in CLI_MODULES + ("metrics", "defense")]
+    names = [f"baddiffusion_tpu_torch.{m}" for m in CLI_MODULES + LATENT_MODULES + ("metrics", "defense")]
     code = ("import importlib, json, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
@@ -118,6 +122,28 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DiffusionPipeline.from_pretrained(str(tmp_path))
     assert DiffusionPipeline.from_pretrained(str(tmp_path), device="cpu").device.type == "cpu"
+
+
+def test_latent_path_and_score_step_default_to_cuda(monkeypatch, tmp_path):
+    """The VQ-VAE, the LDM pipeline (and its reload) and the score step run
+    on the card unless the caller asks for the CPU."""
+    from baddiffusion_tpu_torch.models import VQModel, VQModelConfig
+    from baddiffusion_tpu_torch.pipelines import LDMPipeline
+    from baddiffusion_tpu_torch.training import make_optimizer, make_ve_train_step
+
+    vq_cfg = VQModelConfig(block_out_channels=(8,), norm_num_groups=4, sample_size=8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VQModel(vq_cfg)
+    vq, unet = VQModel(vq_cfg, device="cpu"), UNet2DModel(TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LDMPipeline(vq, unet, DDPMScheduler())
+    LDMPipeline(vq, unet, DDPMScheduler(), device="cpu").save_pretrained(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LDMPipeline.from_pretrained(str(tmp_path))
+    assert LDMPipeline.from_pretrained(str(tmp_path), device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_ve_train_step(unet, make_optimizer(1e-4)[0], [0.01, 1.0])
 
 
 def test_command_lines_default_to_cuda(monkeypatch, tmp_path):
