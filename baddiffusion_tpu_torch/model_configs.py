@@ -13,6 +13,13 @@ latent-diffusion run directory with seeded weights.
   conversion: 256 px, FIR skip blocks, Fourier time embedding; the fields
   neither names are the JAX ``UNet2DConfig`` defaults.
 
+- ``DDPM_CIFAR10_32`` and ``DDPM_EMA_CELEBAHQ_256``: google/ddpm-cifar10-32
+  (35.7M parameters) and google/ddpm-ema-celebahq-256 (113.7M), the
+  pixel-space checkpoints the reference fine-tunes, field for field their
+  published ``unet/config.json``: one attention head as wide as its block
+  (``attention_head_dim`` None), ``downsample_padding`` 0, 32 groups,
+  ``norm_eps`` 1e-6, ``freq_shift`` 1, ``flip_sin_to_cos`` False.
+
 ``stage_ldm`` writes what the CLI's sampling and measure modes read on an
 LDM run: the pipeline in the HF layout and an ``args.json``, as the JAX
 package's ``examples/stage_fake_ldm.py`` does (there at quarter scale).
@@ -69,6 +76,45 @@ NCSNPP_CELEBA_HQ_256 = UNet2DConfig(
     up_block_types=("SkipUpBlock2D",) * 2 + ("AttnSkipUpBlock2D",) + ("SkipUpBlock2D",) * 4,
     time_embedding_type="fourier",
     mid_block_scale_factor=math.sqrt(2.0),
+)
+
+DDPM_CIFAR10_32 = UNet2DConfig(
+    sample_size=32,
+    in_channels=3,
+    out_channels=3,
+    center_input_sample=False,
+    time_embedding_type="positional",
+    freq_shift=1,
+    flip_sin_to_cos=False,
+    down_block_types=("DownBlock2D", "AttnDownBlock2D", "DownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "UpBlock2D", "AttnUpBlock2D", "UpBlock2D"),
+    block_out_channels=(128, 256, 256, 256),
+    layers_per_block=2,
+    mid_block_scale_factor=1,
+    downsample_padding=0,
+    act_fn="silu",
+    attention_head_dim=None,
+    norm_num_groups=32,
+    norm_eps=1e-6,
+)
+DDPM_EMA_CELEBAHQ_256 = UNet2DConfig(
+    sample_size=256,
+    in_channels=3,
+    out_channels=3,
+    center_input_sample=False,
+    time_embedding_type="positional",
+    freq_shift=1,
+    flip_sin_to_cos=False,
+    down_block_types=("DownBlock2D", "DownBlock2D", "DownBlock2D", "DownBlock2D", "AttnDownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "AttnUpBlock2D", "UpBlock2D", "UpBlock2D", "UpBlock2D", "UpBlock2D"),
+    block_out_channels=(128, 128, 256, 256, 512, 512),
+    layers_per_block=2,
+    mid_block_scale_factor=1,
+    downsample_padding=0,
+    act_fn="silu",
+    attention_head_dim=None,
+    norm_num_groups=32,
+    norm_eps=1e-6,
 )
 
 

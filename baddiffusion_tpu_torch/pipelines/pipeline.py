@@ -94,6 +94,14 @@ class DiffusionPipeline:
         scheduler = load_scheduler(path, subfolder="scheduler")
         return cls(unet, scheduler, hf_class_name=index.get("_class_name", "DDPMPipeline"), device=device, **kwargs)
 
+    # the pixel/latent surface: identity for a pixel-space pipeline
+    # (LDMPipeline encodes and decodes through its VQ-VAE)
+    def encode(self, image, *args, **kwargs):
+        return image
+
+    def decode(self, latents, *args, **kwargs):
+        return latents
+
     def sample_shape(self, batch_size: int) -> Tuple[int, int, int, int]:
         cfg = self.unet.config
         size = cfg.sample_size or 32

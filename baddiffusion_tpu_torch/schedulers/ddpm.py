@@ -19,6 +19,7 @@ from baddiffusion_tpu_torch.schedulers.base import (
     ConfigurableScheduler,
     DiffusionSchedule,
     add_noise_common,
+    get_velocity_common,
     pred_x0_from_model_output,
     register_scheduler,
     spaced_timesteps,
@@ -166,3 +167,7 @@ class DDPMScheduler(ConfigurableScheduler):
 
     def add_noise(self, state: DDPMState, original: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
         return add_noise_common(state.schedule.alphas_cumprod, original, noise, timesteps)
+
+    def get_velocity(self, state: DDPMState, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+        return get_velocity_common(state.schedule.alphas_cumprod, sample, noise, timesteps)

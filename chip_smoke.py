@@ -121,8 +121,8 @@
    the CPU at B=1 (rtol 1e-3, atol 1e-3*max|y|); two 50-step DDIM chains in
    bf16 (VQ-VAE f32) at B=16 from pixel noise and noise + BOX_14, encoded
    to latents and decoded, images finite in [0, 1]; then ``cli.main``
-   --mode sampling (50-step grids with their movies) and --mode measure (64
-   + 64 images, 50 steps, f32) on the run dir, files and scores checked.
+   --mode sampling (50-step grids with their movies) and --mode measure (16
+   + 16 images, 50 steps, f32) on the run dir, files and scores checked.
    Printed: the chains' imgs/s and ms a step, the VQ encode's and decode's
    and a bf16 UNet forward's ms at B=16, the CLI's times, peak memory. (b)
    google/ncsnpp-celebahq-256 at full width (65.6M, 256 px): an f32 forward
@@ -132,6 +132,29 @@
    each counted window, from the module calls the window made: (K1, K3) a
    call of the LDM UNet (45, 16), the VQ encoder (17, 1) and decoder (23,
    1), NCSN++ (105, 4), and a K2 for every K1 of a score step.
+
+10. The reference's own recipes (run last). (a) google/ddpm-cifar10-32 at
+   full width (``model_configs.DDPM_CIFAR10_32``, 35.7M), staged as a seeded
+   pipeline directory with an args.json (``stage_ddpm``) and reloaded
+   through ``factory.get_pretrained``, weights exact; an f32 forward card
+   against CPU at B=2; ``cli.main --mode train --ckpt <the dir>`` on FAKE
+   512 at batch 128 (4 bf16 steps, 50-step grids, the export); a 50-step
+   bf16 DDPM chain at B=16; profiled windows of a chain and a train step.
+   (b) google/ddpm-ema-celebahq-256 at full width (113.7M, 256 px): an f32
+   forward card against CPU at B=1; a 50-step bf16 DDIM chain at B=8; two
+   steps of bench.py's 256 px recipe (micro-batch 4 x grad-accum 16, bf16
+   on f32 parameters); profiled windows of each. (c) The demos through
+   their ``run(...)``, cut in depth: the attack 300 of 3000 steps, 16 of 64
+   images, 100-step chains; the defense on that run, 20 of 300 ANP steps,
+   its before-ANP MSE the attack's own (rtol 1e-2); the VE score model 50
+   of 4000 steps and a 20-step PC chain of 64 images; their files and
+   finite scores checked (not the attack's outcome, which needs the full
+   length); profiled windows of the attack model's train step and chain.
+   Launch counts over each counted window from its UNet forwards, with and
+   without a backward: (K1, K3) a forward (45, 6), (65, 6) and, for both
+   demo models, (35, 6), derived from the configs, and a K2 for every K1
+   of a forward with a backward. Profiling goes through
+   ``baddiffusion_tpu_torch.utils.profiling``.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its numbers. Any failed check raises, and the script exits
@@ -152,13 +175,12 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from baddiffusion_tpu_torch import anp_cli, cli, factory, ops
 from baddiffusion_tpu_torch import model_configs as mc
 from baddiffusion_tpu_torch.data import Backdoor, DatasetLoader, trigger_mask
 from baddiffusion_tpu_torch.defense import perturb_leaves
+from baddiffusion_tpu_torch.examples import attack_demo, defense_demo, train_sde_ve
 from baddiffusion_tpu_torch.metrics import fid, mse, proxy_extractor, ssim
 from baddiffusion_tpu_torch.models import (
     DEFAULT_SCRATCH_CONFIG,
@@ -171,7 +193,14 @@ from baddiffusion_tpu_torch.models import (
 from baddiffusion_tpu_torch.models.inception import FIDInceptionV3
 from baddiffusion_tpu_torch.ops import _build
 from baddiffusion_tpu_torch.pipelines import DiffusionPipeline, LDMPipeline, sample_chain
-from baddiffusion_tpu_torch.schedulers import DDPMConfig, DDPMScheduler, KarrasVeScheduler, ScoreSdeVeScheduler
+from baddiffusion_tpu_torch.schedulers import (
+    DDIMConfig,
+    DDIMScheduler,
+    DDPMConfig,
+    DDPMScheduler,
+    KarrasVeScheduler,
+    ScoreSdeVeScheduler,
+)
 from baddiffusion_tpu_torch.training import (
     create_score_train_state,
     create_train_state,
@@ -184,7 +213,8 @@ from baddiffusion_tpu_torch.training import (
     save_trainer_state,
     train_loop,
 )
-from baddiffusion_tpu_torch.utils import Tracker
+from baddiffusion_tpu_torch.utils import Tracker, profiling
+from baddiffusion_tpu_torch.utils.profiling import device_profile, time_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TMP_BASE = os.path.join(ROOT, ".chip_smoke_tmp")
@@ -217,6 +247,10 @@ ATTN_SHAPES = {
     (BATCH, 64, 4, 8): 5, (BATCH, 64, 1, 8): 1, (16, 64, 4, 8): 0, (16, 64, 1, 8): 0, (4, 64, 256, 8): 0,
     (4, 64, 64, 8): 0, (16, 1, 256, 256): 0, (16, 1, 16, 256): 0, (4, 8, 1024, 64): 0, (2, 1, 256, 512): 0,
     (2, 3, 100, 64): 0,
+    # phase 10's: google/ddpm-cifar10-32 fine-tuned at batch 128, google/ddpm-ema-celebahq-256's DDIM chain at
+    # batch 8 and its 256 px step at micro-batch 4, the demo models' train steps at 128 and chains at 16
+    (128, 1, 256, 256): 0, (128, 1, 16, 256): 0, (8, 1, 256, 512): 0, (8, 1, 64, 512): 0, (4, 1, 256, 512): 0,
+    (4, 1, 64, 512): 0, (128, 16, 256, 8): 0, (128, 32, 64, 8): 0, (16, 16, 256, 8): 0, (16, 32, 64, 8): 0,
 }
 ATTN_SAMPLING = {(16, 64, 4, 8): 5, (16, 64, 1, 8): 1}  # a UNet forward at the sampling batch
 # phase 9's shapes, checked and timed in the dtype their path runs in (not
@@ -225,7 +259,9 @@ ATTN_SAMPLING = {(16, 64, 4, 8): 5, (16, 64, 1, 8): 1}  # a UNet forward at the 
 # 14, 21, 28) and of its VQ-VAE's 256 px decoder stage, f32
 GN_LATENT_SHAPES = {(16, 64, 64, 224): torch.bfloat16, (16, 32, 32, 448): torch.bfloat16,
                     (16, 16, 16, 672): torch.bfloat16, (16, 8, 8, 896): torch.bfloat16,
-                    (16, 256, 256, 128): torch.float32}
+                    (16, 256, 256, 128): torch.float32,
+                    # phase 10: google/ddpm-ema-celebahq-256's first level in its 256 px step (micro-batch 4)
+                    (4, 256, 256, 128): torch.bfloat16}
 # attention [B, H, T, D]: the VQ-VAE's mid block at the 64x64 latent (the
 # envelope's long end), timed in both dtypes; the LDM UNet's three attention
 # resolutions at B=16 (448, 672 and 896 channels in heads of 32), the same
@@ -242,8 +278,6 @@ TOL = {torch.float32: dict(atol=1e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2,
 SAMPLE_BATCH = 16
 SAMPLE_STEPS = 1000
 PROFILE_STEPS = 20
-PROFILE_ATTEMPTS = 3
-EVENT_TIMED = "(whole window, CUDA events)"  # device_profile's one entry when the profiler recorded nothing
 # the train step: bench.py's batch, optimizer and poisoning
 TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 2e-4, 500, 10_000
 POISON_RATE = 0.1
@@ -273,20 +307,19 @@ ANP_MEASURE_N, ANP_BUDGET = 128, 4.0
 INCEPTION_CHECK_SHAPE, INCEPTION_BATCH = (16, 32, 32, 3), 128
 # phase 9: LDM-CELEBA-HQ-256 and NCSN++ 256 px at full width, cut in depth; the (K1, K3) launches of one
 # call of each module, derived from the configs (two K1 a resnet, one a fused output norm, one K3 an attention)
-LDM_BATCH, LDM_STEPS, LDM_MEASURE_N, LDM_FAKE_SIZE = 16, 50, 64, 128
-GPU = "0"  # phase 9's command lines' --gpu
+LDM_BATCH, LDM_STEPS, LDM_MEASURE_N, LDM_FAKE_SIZE = 16, 50, 16, 128
+GPU = "0"  # phase 9's and 10's command lines' --gpu
 LDM_KERNEL_CALLS = {"UNet2DModel": (45, 16), "Encoder": (17, 1), "Decoder": (23, 1)}
 NCSNPP_KERNEL_CALLS = (105, 4)
 NCSNPP_CHAIN_BATCH, NCSNPP_CHAIN_STEPS = 2, 10
 NCSNPP_TRAIN_BATCH, NCSNPP_TRAIN_STEPS, NCSNPP_LR = 4, 4, 2e-5  # the reference's 256 px scratch rate
-# kernel-name fragments -> the layer they belong to, for the device-time breakdown
-KERNEL_GROUPS = (
-    ("groupnorm_silu (K1)", ("groupnorm_silu_fwd_kernel",)),
-    ("groupnorm_silu_backward (K2)", ("groupnorm_silu_bwd_kernel", "sum_rows_kernel")),
-    ("attention (K3)", ("attention_packed_kernel", "attention_tiled_kernel", "attention_rowwise_kernel")),
-    ("convolution (cuDNN)", ("fprop", "conv", "cutlass", "implicit_gemm", "xmma")),
-    ("matmul (cuBLAS)", ("nvjet", "gemm", "cublas")),
-)
+# phase 10: google/ddpm-cifar10-32 and google/ddpm-ema-celebahq-256 at full width, and the demos, cut in depth;
+# the (K1, K3) launches a forward, derived from the configs (K2: one for every K1 of a train, ANP or score step)
+PUBLISHED_KERNEL_CALLS = {"DDPM-CIFAR10-32": (45, 6), "DDPM-EMA-CELEBAHQ-256": (65, 6), "demo": (35, 6)}
+CIFAR_FAKE_SIZE, CHAIN_STEPS, PROFILE_CHAIN_STEPS = 512, 50, 10  # the CLI fine-tune takes 4 steps at batch 128
+CELEBA_CHAIN_BATCH, CELEBA_MICRO, CELEBA_ACCUM, CELEBA_TRAIN_STEPS = 8, 4, 16, 2  # bench.py's 256 px recipe
+ATTACK_STEPS, DEMO_N, DEMO_CHAIN, ANP_DEMO_STEPS = 300, 16, 100, 20
+VE_STEPS, VE_N, VE_CHAIN = 50, 64, 20
 
 
 class SmokeFailure(AssertionError):
@@ -296,62 +329,6 @@ class SmokeFailure(AssertionError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
-
-
-def time_ms(fn, reps: int = 20, repeats: int = 5) -> float:
-    """Median over ``repeats`` of the CUDA-event time of ``reps`` back-to-back
-    calls, per call, after one warm-up call: the wall time a caller pays,
-    launch overhead included."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def device_profile(fn, reps: int = 20):
-    """``fn`` run ``reps`` times under torch.profiler after one warm-up call.
-    Returns (host wall ms per call, device kernel ms per call,
-    {kernel name: device ms per call}, {host op: self host ms per call}); the
-    device time is the sum of the kernels' own durations, free of launch
-    overhead. Host op times include the profiler's own cost.
-
-    Now and then a profiler session on the card comes back with no device
-    events at all (about one session in 200, at times several in a row); the
-    window is then measured again, at most ``PROFILE_ATTEMPTS`` times in all,
-    and after that timed with CUDA events: its device time is then the
-    window's wall time, launch gaps included, under the one name
-    ``EVENT_TIMED``, with no host ops."""
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        kernels = {
-            e.key: e.self_device_time_total / 1e3 / reps
-            for e in events
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-        }
-        if kernels:
-            host = {e.key: e.self_cpu_time_total / 1e3 / reps for e in events if e.device_type == DeviceType.CPU}
-            return wall * 1e3 / reps, sum(kernels.values()), kernels, host
-        print(f"   (profiler session {attempt} recorded no device events; measuring again)")
-    ms = time_ms(fn, reps=reps, repeats=1)
-    print(f"   (no device events in {PROFILE_ATTEMPTS} profiler sessions: this window timed with CUDA events, "
-          "launch gaps included)")
-    return ms, ms, {EVENT_TIMED: ms}, {}
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -364,14 +341,7 @@ def top_host_ops(host: dict, per: float, n: int = 8) -> str:
 
 
 def breakdown(kernels: dict, per: float = 1.0) -> str:
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
-    groups["other (elementwise, copies, cat, plain norms)"] = 0.0
-    for key, ms in kernels.items():
-        low = key.lower()
-        name = next((n for n, frags in KERNEL_GROUPS if any(f in low for f in frags)), None)
-        groups[name or "other (elementwise, copies, cat, plain norms)"] += ms
-    total = sum(groups.values())
-    return ", ".join(f"{n} {v / per:.4f} ms ({100 * v / total:.1f}%)" for n, v in groups.items())
+    return profiling.format_by_class(profiling.device_time_by_class(kernels), per)
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype, n_exp: float = 0.0) -> tuple:
@@ -559,7 +529,8 @@ def phase_groupnorm(dev, gen) -> dict:
         print(f"   {label} f32 and bf16 match the plain version, statistics and repeatability checked; bf16 kernel "
               f"{k_ms:.4f} ms; plan (bf16): {plan_text(x)}")
     print(f"   per UNet forward (B={SAMPLE_BATCH}, bf16, {GN_PER_FORWARD} calls): kernel {sampling_ms:.4f} ms")
-    print("   phase 9's shapes (the LDM UNet at B=16 in bf16, the VQ-VAE's 256 px stage in f32):")
+    print("   phase 9's and 10's shapes (the LDM UNet at B=16 in bf16, the VQ-VAE's 256 px stage in f32, "
+          "google/ddpm-ema-celebahq-256's at micro-batch 4 in bf16):")
     for (b, h, w, c), time_dtype in GN_LATENT_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             x, weight, bias = gn_inputs(dev, gen, h, w, c, dtype, batch=b)
@@ -631,7 +602,8 @@ def phase_groupnorm_backward(dev, gen) -> dict:
     print(f"   {label} f32 and bf16 match the plain version and autograd, repeatability checked; bf16 kernel "
           f"{k_ms:.4f} ms; plan (bf16): {plan_text(x, ops.groupnorm_silu_backward_plan)}")
     del x, ct, got, ref
-    print("   phase 9's shapes (the LDM UNet at B=16 in bf16, the VQ-VAE's 256 px stage in f32):")
+    print("   phase 9's and 10's shapes (the LDM UNet at B=16 in bf16, the VQ-VAE's 256 px stage in f32, "
+          "google/ddpm-ema-celebahq-256's at micro-batch 4 in bf16):")
     for (b, h, w, c), time_dtype in GN_LATENT_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             k2_shape(rec, dev, gen, b, h, w, c, dtype, f"B={b} ({h},{w},{c})", 0, time_dtype)
@@ -1825,6 +1797,305 @@ def phase_latent(dev, smi: str) -> tuple:
     return runs
 
 
+class ForwardCounter:
+    """Counts the UNet2DModel forwards on the card while it is entered,
+    apart by whether autograd records them (a train, ANP or score step's
+    forward, each of whose K1 calls has its K2 in the backward) or not (a
+    chain's)."""
+
+    def __init__(self):
+        self.grad = self.nograd = 0
+
+    def _hook(self, module, args):
+        if isinstance(module, UNet2DModel) and torch.is_tensor(args[0]) and args[0].is_cuda:
+            if torch.is_grad_enabled():
+                self.grad += 1
+            else:
+                self.nograd += 1
+
+    def __enter__(self):
+        self.handle = torch.nn.modules.module.register_module_forward_pre_hook(self._hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+    def what(self) -> str:
+        return f"{self.grad} forwards with a backward, {self.nograd} without"
+
+    def want(self, per: tuple) -> dict:
+        k1, k3 = per
+        return {"groupnorm_silu": k1 * (self.grad + self.nograd), "groupnorm_silu_backward": k1 * self.grad,
+                "attention": k3 * (self.grad + self.nograd)}
+
+
+def counted(runs: list, path: str, per: tuple, fn):
+    """``fn()`` with the launch counters set to 0 just before and read just
+    after, its UNet forwards counted; appends the window to ``runs``.
+    Returns (fn's result, the ForwardCounter, seconds)."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with ForwardCounter() as fc:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    runs.append((path, fc.what(), ops.launch_counts(), fc.want(per)))
+    return out, fc, dt
+
+
+def stage_ddpm(path: str, config, seed: int, dev) -> UNet2DModel:
+    """A seeded DDPM pipeline directory in the HF layout, with the
+    ``args.json`` a run dir has, as ``model_configs.stage_ldm`` writes one:
+    what ``--ckpt`` reads as it reads a hub checkpoint."""
+    unet = UNet2DModel(config, device=dev, generator=torch.Generator().manual_seed(seed))
+    DiffusionPipeline(unet, DDPMScheduler(DDPMConfig()), device=dev).save_pretrained(path)
+    args = {"mode": "train", "dataset": "FAKE", "batch": BATCH, "epoch": 1, "ckpt": os.path.basename(path),
+            "trigger": "BOX_14", "target": "CORNER", "poison_rate": POISON_RATE, "overwrite": True,
+            "image_size": config.sample_size}
+    with open(os.path.join(path, "args.json"), "w") as f:
+        json.dump(args, f, indent=2)
+    return unet
+
+
+def check_chain(label: str, out, shape: tuple) -> None:
+    imgs = out.images
+    check(tuple(imgs.shape) == shape, f"{label}: images {tuple(imgs.shape)}, designed {shape}")
+    check(bool(torch.isfinite(out.sample).all()) and imgs.min().item() >= 0.0 and imgs.max().item() <= 1.0,
+          f"{label}: sample not finite or images outside [0, 1]")
+
+
+def print_device_time(label: str, stats: dict, smi: str) -> None:
+    print(f"   {label}: {stats['wall_ms_per_step']:.3f} ms/step wall, {stats['device_time_ms_per_step']:.3f} ms/step "
+          f"device kernels, device idle {100 * stats['idle_share']:.1f}% on {smi}")
+    print(f"     device time per step: {profiling.format_by_class(stats['by_class'])}")
+
+
+def poisoned_step(model, size: int, batch: int, grad_accum: int, dev):
+    """(step, state, one poisoned FAKE batch on the card) of the backdoor
+    train step at ``size`` px: bench.py's optimizer, BOX_14 -> CORNER at 0.1."""
+    dsl = DatasetLoader(DatasetLoader.FAKE, image_size=size, batch_size=batch, fake_size=batch)
+    dsl.set_poison("BOX_14", "CORNER", poison_rate=POISON_RATE).prepare_dataset()
+    schedule = DDPMScheduler(DDPMConfig()).create_state().schedule
+    opt, _ = make_optimizer(TRAIN_LR, num_warmup_steps=TRAIN_WARMUP, num_training_steps=TRAIN_TOTAL)
+    state = create_train_state(model, opt, dsl.trigger, dsl.target, dsl.mask)
+    step = make_train_step(model, opt, 1000, schedule.alphas, schedule.alphas_cumprod, grad_accum=grad_accum,
+                           use_remat=False, device=dev)
+    b = next(dsl.epoch_batches(0))
+    return step, state, torch.from_numpy(b["image_u8"]).to(dev), torch.from_numpy(b["is_clean"]).to(dev)
+
+
+def phase_published(dev, smi: str) -> list:
+    """Phase 10: (a) google/ddpm-cifar10-32 and (b) google/ddpm-ema-celebahq-256
+    at full width, seeded; (c) the three demos through their ``run(...)``,
+    cut in depth. Launch counters set to 0 just before each counted window
+    and read just after. Returns [(path, what ran, counts, wanted counts)]."""
+    runs = []
+    os.environ["WANDB_MODE"] = "disabled"
+    os.makedirs(TMP_BASE, exist_ok=True)
+    root = tempfile.mkdtemp(dir=TMP_BASE)
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)  # the CLI's run dir is named after --ckpt; the measure's dump is cwd-relative
+        phase_published_cifar10(dev, smi, root, runs)
+        phase_published_celebahq(dev, smi, runs)
+        phase_published_demos(dev, smi, root, runs)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+        if os.path.isdir(TMP_BASE) and not os.listdir(TMP_BASE):
+            os.rmdir(TMP_BASE)
+    return runs
+
+
+def phase_published_cifar10(dev, smi: str, root: str, runs: list) -> None:
+    cfg = mc.DDPM_CIFAR10_32
+    print(f"-- phase 10 (a): google/ddpm-cifar10-32 at full width ({cfg.block_out_channels}, one head as wide as its "
+          f"block), seeded; the CLI fine-tune {CIFAR_FAKE_SIZE // BATCH} bf16 steps at batch {BATCH} (its grids "
+          f"{CHAIN_STEPS} steps), a {CHAIN_STEPS}-step chain: cuts in depth")
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    name = "ddpm_cifar10_32"
+    staged = stage_ddpm(os.path.join(root, name), cfg, 100, dev)
+    unet, sched, get_pipeline = factory.get_pretrained(os.path.join(root, name), dtype=torch.float32, device=dev)
+    sd_a, sd_b = staged.state_dict(), unet.state_dict()
+    check(unet.config == cfg and all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a),
+          "DDPM-CIFAR10-32: weights or config changed through save_pretrained/get_pretrained")
+    del staged, sd_a, sd_b
+    per = kernel_calls(unet)
+    n_params = sum(p.numel() for p in unet.parameters())
+    check(per == PUBLISHED_KERNEL_CALLS["DDPM-CIFAR10-32"] and n_params == 35_746_307,
+          f"DDPM-CIFAR10-32: {n_params} parameters, (K1, K3) a forward {per}")
+    print(f"   staged and reloaded through factory.get_pretrained, weights exact: {n_params} parameters; (K1, K3) a "
+          f"forward {per}, K2 {per[0]} a backward")
+    cpu_unet = UNet2DModel(cfg, device="cpu")
+    cpu_unet.load_state_dict(unet.state_dict())
+    g = torch.Generator().manual_seed(101)
+    x, t = torch.randn(2, 32, 32, 3, generator=g), torch.tensor([10, 900])
+    with torch.inference_mode():
+        check_card_vs_cpu("f32 DDPM-CIFAR10-32 forward B=2", unet(x.to(dev), t.to(dev)), cpu_unet(x, t))
+    del cpu_unet
+
+    # the CLI fine-tunes the staged checkpoint, as the reference fine-tunes the hub's
+    run = os.path.join(root, f"res_{name}_FAKE_ep1_c1.0_p{POISON_RATE}_BOX_14-CORNER")
+    _, fc, wall = counted(runs, "DDPM-CIFAR10-32 CLI fine-tune", per, lambda: cli.main(
+        ["--mode", "train", "--ckpt", name, "--dataset", "FAKE", "--fake_size", str(CIFAR_FAKE_SIZE), "--batch",
+         str(BATCH), "--epoch", "1", "--trigger", "BOX_14", "--target", "CORNER", "--poison_rate", str(POISON_RATE),
+         "--sampling_steps", str(CHAIN_STEPS), "--gpu", GPU, "-o", "--result", root]))
+    steps = CIFAR_FAKE_SIZE // BATCH
+    data = read_json(os.path.join(run, "data.json"))
+    losses = [r["loss"] for r in read_jsonl(os.path.join(run, "logs", "metrics.jsonl")) if "loss" in r]
+    check(data["step"] == steps == fc.grad and bool(losses) and bool(np.isfinite(losses).all())
+          and fc.nograd == 2 * CHAIN_STEPS and os.path.exists(os.path.join(run, "model_index.json")),
+          f"DDPM-CIFAR10-32 CLI fine-tune: data.json {data}, losses {losses}, {fc.what()}")
+    print(f"   cli --mode train --ckpt (the staged dir): {steps} steps, losses {[round(v, 4) for v in losses]}, "
+          f"grids and export in {wall:.1f} s")
+
+    pipe = get_pipeline(sched, device=dev, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(dev).manual_seed(102)
+    pipe(batch_size=2, generator=gen, num_inference_steps=2)  # warm-up
+    out, _, wall = counted(runs, "DDPM-CIFAR10-32 chain", per, lambda: pipe(
+        batch_size=SAMPLE_BATCH, generator=gen, num_inference_steps=CHAIN_STEPS, output_type="pt"))
+    check_chain("DDPM-CIFAR10-32 chain", out, (SAMPLE_BATCH, 32, 32, 3))
+    print(f"   {CHAIN_STEPS}-step bf16 DDPM chain B={SAMPLE_BATCH}: {wall:.3f} s, {SAMPLE_BATCH / wall:.3f} imgs/s, "
+          f"{wall / CHAIN_STEPS * 1e3:.3f} ms/step on {smi}")
+    stats = profiling.measure_device_time(
+        lambda: pipe(batch_size=SAMPLE_BATCH, generator=gen, num_inference_steps=PROFILE_CHAIN_STEPS,
+                     output_type="pt"), steps=1)
+    print_device_time(f"profiled {PROFILE_CHAIN_STEPS}-step chain (a step = one chain)", stats, smi)
+    model = UNet2DModel(cfg, device=dev, generator=torch.Generator().manual_seed(103), dtype=torch.bfloat16)
+    step, state, image, is_clean = poisoned_step(model, 32, BATCH, 1, dev)
+    stats = profiling.measure_device_time(lambda: step(state, image, is_clean, gen), steps=TRAIN_PROFILE_STEPS)
+    print_device_time(f"bf16 train step B={BATCH}", stats, smi)
+    del unet, pipe, model, step, state, out
+    print(f"   phase 10 (a) DDPM-CIFAR10-32 took {time.perf_counter() - phase_t0:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi}")
+
+
+def phase_published_celebahq(dev, smi: str, runs: list) -> None:
+    cfg = mc.DDPM_EMA_CELEBAHQ_256
+    print(f"-- phase 10 (b): google/ddpm-ema-celebahq-256 at full width ({cfg.block_out_channels}, 256 px), seeded; a "
+          f"{CHAIN_STEPS}-step bf16 DDIM chain at B={CELEBA_CHAIN_BATCH}, {CELEBA_TRAIN_STEPS} steps of the 256 px "
+          f"recipe (micro-batch {CELEBA_MICRO} x grad-accum {CELEBA_ACCUM}, bench.py)")
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    unet = UNet2DModel(cfg, device=dev, generator=torch.Generator().manual_seed(104))
+    per = kernel_calls(unet)
+    n_params = sum(p.numel() for p in unet.parameters())
+    check(per == PUBLISHED_KERNEL_CALLS["DDPM-EMA-CELEBAHQ-256"] and n_params == 113_673_219,
+          f"DDPM-EMA-CELEBAHQ-256: {n_params} parameters, (K1, K3) a forward {per}")
+    cpu_unet = UNet2DModel(cfg, device="cpu")
+    cpu_unet.load_state_dict(unet.state_dict())
+    g = torch.Generator().manual_seed(105)
+    x, t = torch.randn(1, 256, 256, 3, generator=g), torch.tensor([500])
+    with torch.inference_mode():
+        check_card_vs_cpu("f32 DDPM-EMA-CELEBAHQ-256 forward B=1", unet(x.to(dev), t.to(dev)), cpu_unet(x, t))
+    del cpu_unet
+    pipe = DiffusionPipeline(unet, DDIMScheduler(DDIMConfig()), default_inference_steps=CHAIN_STEPS,
+                             hf_class_name="DDIMPipeline", compute_dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(dev).manual_seed(106)
+    pipe(batch_size=2, generator=gen, num_inference_steps=2)  # warm-up
+    out, _, wall = counted(runs, "DDPM-EMA-CELEBAHQ-256 DDIM chain", per, lambda: pipe(
+        batch_size=CELEBA_CHAIN_BATCH, generator=gen, num_inference_steps=CHAIN_STEPS, output_type="pt"))
+    check_chain("DDPM-EMA-CELEBAHQ-256 chain", out, (CELEBA_CHAIN_BATCH, 256, 256, 3))
+    print(f"   {CHAIN_STEPS}-step bf16 DDIM chain B={CELEBA_CHAIN_BATCH}: {wall:.3f} s, "
+          f"{CELEBA_CHAIN_BATCH / wall:.3f} imgs/s, {wall / CHAIN_STEPS * 1e3:.3f} ms/step on {smi}")
+    stats = profiling.measure_device_time(
+        lambda: pipe(batch_size=CELEBA_CHAIN_BATCH, generator=gen, num_inference_steps=PROFILE_CHAIN_STEPS,
+                     output_type="pt"), steps=1)
+    print_device_time(f"profiled {PROFILE_CHAIN_STEPS}-step DDIM chain B={CELEBA_CHAIN_BATCH} (a step = one chain)",
+                      stats, smi)
+    del unet, pipe, out
+    model = UNet2DModel(cfg, device=dev, generator=torch.Generator().manual_seed(107), dtype=torch.bfloat16)
+    step, state, image, is_clean = poisoned_step(model, 256, CELEBA_MICRO * CELEBA_ACCUM, CELEBA_ACCUM, dev)
+    state, m = step(state, image, is_clean, gen)  # warm-up: first 256 px calls set up cuDNN/cuBLAS
+    metrics = []
+
+    def recipe_steps():
+        nonlocal state
+        for _ in range(CELEBA_TRAIN_STEPS):
+            state, m = step(state, image, is_clean, gen)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+
+    _, fc, wall = counted(runs, "DDPM-EMA-CELEBAHQ-256 256 px recipe", per, recipe_steps)
+    check(fc.grad == CELEBA_TRAIN_STEPS * CELEBA_ACCUM and fc.nograd == 0 and bool(np.isfinite(metrics).all()),
+          f"DDPM-EMA-CELEBAHQ-256 recipe steps: {fc.what()}, (loss, grad norm) {metrics}")
+    samples = CELEBA_MICRO * CELEBA_ACCUM
+    print(f"   256 px recipe, bf16 compute on f32 parameters, {CELEBA_MICRO} x {CELEBA_ACCUM} = {samples} a step: "
+          f"(loss, grad norm) {[(round(a, 4), round(b, 4)) for a, b in metrics]}; "
+          f"{wall / CELEBA_TRAIN_STEPS * 1e3:.3f} ms a step wall ({samples * CELEBA_TRAIN_STEPS / wall:.2f} "
+          f"samples/s) on {smi}")
+    stats = profiling.measure_device_time(lambda: step(state, image, is_clean, gen), steps=1)
+    print_device_time("profiled 256 px recipe step", stats, smi)
+    del model, step, state
+    print(f"   phase 10 (b) DDPM-EMA-CELEBAHQ-256 took {time.perf_counter() - phase_t0:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi}")
+
+
+def phase_published_demos(dev, smi: str, root: str, runs: list) -> None:
+    print(f"-- phase 10 (c): the demos through their run(...), cut in depth: attack {ATTACK_STEPS} of 3000 steps, "
+          f"{DEMO_N} of 64 images, {DEMO_CHAIN}-step chains (not 1000); ANP {ANP_DEMO_STEPS} of 300 steps on that run; "
+          f"VE score {VE_STEPS} of 4000 steps, a {VE_CHAIN}-step PC chain (not 2000) of {VE_N} images")
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    models = (("attack", attack_demo.ATTACK_MODEL_CONFIG), ("score", train_sde_ve.SCORE_MODEL_CONFIG))
+    per = {name: kernel_calls(UNet2DModel(config, device="meta")) for name, config in models}
+    check(per == {"attack": PUBLISHED_KERNEL_CALLS["demo"], "score": PUBLISHED_KERNEL_CALLS["demo"]},
+          f"the demo models' (K1, K3) a forward {per}")
+    attack_dir = os.path.join(root, "attack_demo_out")
+    res, fc, wall = counted(runs, "attack demo", per["attack"], lambda: attack_demo.run(
+        ATTACK_STEPS, attack_dir, n=DEMO_N, sampling_steps=DEMO_CHAIN, device=dev))
+    with open(os.path.join(attack_dir, "result.json")) as f:
+        saved = json.load(f)
+    check(fc.grad == ATTACK_STEPS and fc.nograd == 2 * DEMO_CHAIN
+          and sorted(os.listdir(attack_dir)) == ["args.json", "backdoor_grid.png", "clean_grid.png",
+                                                 "model_index.json", "result.json", "scheduler", "unet"]
+          and all(np.isfinite(v) for v in saved.values()) and len(saved) == 4,
+          f"attack demo: {fc.what()}, files {sorted(os.listdir(attack_dir))}, result {saved}")
+    print(f"   attack demo: {saved}; {ATTACK_STEPS} steps in {res['train_s']:.1f} s ({res['train_steps_per_s']:.2f} "
+          f"steps/s), sampling {res['sample_s']:.1f} s, wall {wall:.1f} s on {smi}")
+
+    defense_dir = os.path.join(root, "defense_demo_out")
+    res, fc, wall = counted(runs, "defense demo", per["attack"], lambda: defense_demo.run(
+        attack_dir, ANP_DEMO_STEPS, out=defense_dir, n=DEMO_N, sampling_steps=DEMO_CHAIN, device=dev))
+    check(fc.grad == ANP_DEMO_STEPS and fc.nograd == 2 * DEMO_CHAIN
+          and np.isfinite(res["backdoor_mse_before"]) and np.isfinite(res["backdoor_mse_after"])
+          and abs(res["backdoor_mse_before"] - saved["backdoor_mse"]) <= 1e-2 * saved["backdoor_mse"],
+          f"defense demo: {fc.what()}, {res}; the attack's backdoor_mse {saved['backdoor_mse']}")
+    print(f"   defense demo: backdoor_mse {res['backdoor_mse_before']:.6g} -> {res['backdoor_mse_after']:.6g} "
+          f"(before: the attack's own chain reloaded, rtol 1e-2); {ANP_DEMO_STEPS} ANP steps in {res['anp_s']:.1f} s "
+          f"({res['anp_steps_per_s']:.2f} steps/s), wall {wall:.1f} s on {smi}")
+
+    ve_dir = os.path.join(root, "sde_ve_out")
+    sde_forwards = VE_CHAIN * (ScoreSdeVeScheduler().config.correct_steps + 1)
+    row, fc, wall = counted(runs, "VE score demo", per["score"], lambda: train_sde_ve.run(
+        VE_STEPS, n=VE_N, out=ve_dir, dataset="FAKE", sampling_steps=VE_CHAIN, device=dev))
+    check(fc.grad == VE_STEPS and fc.nograd == sde_forwards and np.isfinite(row["FID_proxy"])
+          and np.isfinite(row["final_loss"]) and len(os.listdir(os.path.join(ve_dir, "pc_samples"))) == VE_N
+          and os.path.exists(os.path.join(ve_dir, "result.json")),
+          f"VE score demo: {fc.what()}, row {row}")
+    print(f"   VE score demo: FID_proxy {row['FID_proxy']} (on {VE_N} images), final loss {row['final_loss']:.4f}; "
+          f"{VE_STEPS} steps in {row['train_s']:.1f} s ({row['train_steps_per_s']:.2f} steps/s), the chain "
+          f"{row['sample_s']:.1f} s ({row['imgs_per_sec']} imgs/s), wall {wall:.1f} s on {smi}")
+
+    # where the time goes on the demo models
+    model = UNet2DModel(attack_demo.ATTACK_MODEL_CONFIG, device=dev, generator=torch.Generator().manual_seed(108),
+                        dtype=torch.bfloat16)
+    gen = torch.Generator(dev).manual_seed(109)
+    step, state, image, is_clean = poisoned_step(model, 32, BATCH, 1, dev)
+    print_device_time(f"attack model, bf16 train step B={BATCH}",
+                      profiling.measure_device_time(lambda: step(state, image, is_clean, gen),
+                                                    steps=TRAIN_PROFILE_STEPS), smi)
+    pipe = DiffusionPipeline(model, DDPMScheduler(DDPMConfig()), device=dev)
+    print_device_time(f"attack model, profiled {PROFILE_CHAIN_STEPS}-step DDPM chain B={DEMO_N} (a step = one chain)",
+                      profiling.measure_device_time(lambda: pipe(batch_size=DEMO_N, generator=gen, output_type="pt",
+                                                                 num_inference_steps=PROFILE_CHAIN_STEPS), steps=1),
+                      smi)
+    del model, step, state, pipe
+    print(f"   phase 10 (c) took {time.perf_counter() - phase_t0:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs only on a GPU", file=sys.stderr)
@@ -1839,7 +2110,7 @@ def main() -> int:
     steps, training, bare_ms = phase_train(dev, smi)
     loop_steps, loop_sampled, trainer_counts = phase_trainer(dev, smi, bare_ms)
     cli_steps, cli_sampled, cli_counts = phase_cli(dev, smi)
-    latent_runs = phase_latent(dev, smi)
+    latent_runs = phase_latent(dev, smi) + phase_published(dev, smi)
 
     for path, n, counts, want in (
         ("sampling", f"{forwards} UNet forwards", sampling,

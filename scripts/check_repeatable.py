@@ -2,7 +2,7 @@
 """Repeatability of the port's kernels (K1, K2, K3) on the card, at the
 shapes ``chip_smoke.py`` phase 2 checks them at.
 
-    python3 scripts/check_repeatable.py [--calls N]
+    python3 scripts/check_repeatable.py [--calls N] [--tiled-only]
 
 Two tests, each bitwise:
 
@@ -15,7 +15,9 @@ Two tests, each bitwise:
    calls (default 500) each compared with the first, with
    ``scaled_dot_product_attention`` run between every third pair.
 
-Prints the card's name and power limit, a line for each shape that differed
+``--tiled-only`` runs the second test alone (what a run under
+``compute-sanitizer`` needs: the fills and the K1/K2 shapes would take it
+hours). Prints the card's name and power limit, a line for each shape that differed
 (none, when the kernels are sound), the counts, and one JSON line. Exits 1 if
 any output differed. Needs a GPU and nvcc.
 """
@@ -95,22 +97,12 @@ def after_fills(fill, sms: int, label: str, fn) -> int:
     return differ
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--calls", type=int, default=500, help="K3 calls a shape in the second test")
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        print("check_repeatable: needs a GPU", file=sys.stderr)
-        return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
-    _build.build()
+def fill_tests(dev, gen, attn: list) -> tuple:
+    """The first test at every shape; returns (cases, outputs a fill
+    changed, the shapes whose bf16 plan is ``tiled``)."""
     fill = fill_library()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    dev = torch.device("cuda")
-    gen = torch.Generator(dev).manual_seed(0)
     groups, eps = chip_smoke.GROUPS, chip_smoke.EPS
-
     checked = differ = 0
     gn = [(chip_smoke.BATCH, *hwc) for hwc in chip_smoke.GN_SHAPES] + list(chip_smoke.GN_LATENT_SHAPES)
     for b, h, w, c in gn:
@@ -124,7 +116,6 @@ def main() -> int:
             differ += after_fills(fill, sms, f"K2 {label}",
                                   lambda: ops.groupnorm_silu_backward(x, weight, bias, mean, rstd, ct, groups))
             checked += 2
-    attn = list(chip_smoke.ATTN_SHAPES) + list(chip_smoke.ATTN_LATENT_SHAPES)
     tiled = []
     for shape in attn:
         for dtype in (torch.float32, torch.bfloat16):
@@ -139,6 +130,28 @@ def main() -> int:
             del q, k, v
     print(f"after {len(PATTERNS)} shared-memory fills: {checked} cases (kernel, shape, dtype), {differ} outputs "
           "changed by a fill")
+    return checked, differ, tiled
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--calls", type=int, default=500, help="K3 calls a shape in the second test")
+    parser.add_argument("--tiled-only", action="store_true", help="the second test alone")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("check_repeatable: needs a GPU", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    _build.build()
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    attn = list(chip_smoke.ATTN_SHAPES) + list(chip_smoke.ATTN_LATENT_SHAPES)
+    checked = differ = 0
+    if args.tiled_only:
+        tiled = [s for s in attn if ops.attention_plan(s[0] * s[1], s[2], s[3], torch.bfloat16).variant == "tiled"]
+    else:
+        checked, differ, tiled = fill_tests(dev, gen, attn)
 
     calls = calls_differ = 0
     for shape in tiled:

@@ -67,12 +67,14 @@ CLI_MODULES = ("config", "cli", "anp_cli", "metrics._prng", "metrics.image", "me
 # the latent-diffusion path, the NCSN++ blocks and score matching, likewise
 LATENT_MODULES = ("models.vae", "models.blocks", "models.resnet", "pipelines.ldm", "training.score_matching",
                   "model_configs")
+# the device-time profiler and the reference's demos, likewise
+DEMO_MODULES = ("utils.profiling", "examples.attack_demo", "examples.defense_demo", "examples.train_sde_ve")
 
 
 def test_every_module_imports_without_nvcc_or_a_gpu():
     names = [m.name for m in pkgutil.walk_packages([PACKAGE_DIR], prefix="baddiffusion_tpu_torch.")]
     assert "baddiffusion_tpu_torch.ops._build" in names and "baddiffusion_tpu_torch.pipelines.pipeline" in names
-    for modules in (TRAINER_MODULES, ZOO_MODULES, CLI_MODULES, LATENT_MODULES):
+    for modules in (TRAINER_MODULES, ZOO_MODULES, CLI_MODULES, LATENT_MODULES, DEMO_MODULES):
         assert {f"baddiffusion_tpu_torch.{m}" for m in modules} <= set(names)
         checked = {os.path.relpath(p, PACKAGE_DIR) for p in _sources()}
         assert {m.replace(".", os.sep) + ".py" for m in modules} <= checked
@@ -84,7 +86,8 @@ def test_new_modules_load_no_jax_in_a_fresh_interpreter():
     """Importing each command-line, metric and defense module (and the package's
     entry points) in a fresh interpreter leaves no JAX, flax, optax or
     ``baddiffusion_tpu`` module in ``sys.modules``."""
-    names = [f"baddiffusion_tpu_torch.{m}" for m in CLI_MODULES + LATENT_MODULES + ("metrics", "defense")]
+    modules = CLI_MODULES + LATENT_MODULES + DEMO_MODULES + ("metrics", "defense")
+    names = [f"baddiffusion_tpu_torch.{m}" for m in modules]
     code = ("import importlib, json, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"

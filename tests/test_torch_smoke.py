@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s timing helper on the CPU, with the card's calls stubbed
 out: a profiler session that records no device events must not fail the
-smoke."""
+smoke. The helper lives in ``baddiffusion_tpu_torch.utils.profiling``, which
+the smoke imports."""
 
 import importlib.util
 import os
@@ -32,9 +33,13 @@ class _EmptySession:
 
 
 def test_device_profile_times_with_cuda_events_when_the_profiler_records_nothing(monkeypatch, capsys):
+    from baddiffusion_tpu_torch.utils import profiling
+
     smoke = _load_smoke()
-    monkeypatch.setattr(smoke, "profile", _EmptySession)
-    monkeypatch.setattr(smoke.torch.cuda, "synchronize", lambda *args: None)
+    assert smoke.device_profile is profiling.device_profile
+    monkeypatch.setattr(profiling, "profile", _EmptySession)
+    monkeypatch.setattr(profiling.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(profiling.torch.cuda, "synchronize", lambda *args: None)
     timed = []
 
     def time_ms(fn, reps, repeats):
@@ -42,17 +47,17 @@ def test_device_profile_times_with_cuda_events_when_the_profiler_records_nothing
         fn()
         return 2.5
 
-    monkeypatch.setattr(smoke, "time_ms", time_ms)
+    monkeypatch.setattr(profiling, "time_ms", time_ms)
     calls = []
     wall, dev_ms, kernels, host = smoke.device_profile(lambda: calls.append(1), reps=4)
-    assert (wall, dev_ms, kernels, host) == (2.5, 2.5, {smoke.EVENT_TIMED: 2.5}, {})
+    assert (wall, dev_ms, kernels, host) == (2.5, 2.5, {profiling.EVENT_TIMED: 2.5}, {})
     assert timed == [(4, 1)]
-    assert len(calls) == 1 + smoke.PROFILE_ATTEMPTS * 4 + 1  # warm-up, the empty sessions, the timed window
+    assert len(calls) == 1 + profiling.PROFILE_ATTEMPTS * 4 + 1  # warm-up, the empty sessions, the timed window
     out = capsys.readouterr().out
-    assert out.count("recorded no device events") == smoke.PROFILE_ATTEMPTS
+    assert out.count("recorded no device events") == profiling.PROFILE_ATTEMPTS
     assert "timed with CUDA events" in out
     # the readers of its result still work: the window lands in "other"
-    assert "other (elementwise, copies, cat, plain norms) 2.5000 ms (100.0%)" in smoke.breakdown(kernels)
+    assert "other 2.5000 ms (100.0%)" in smoke.breakdown(kernels)
     assert smoke.top_host_ops(host, 1) == ""
 
 
