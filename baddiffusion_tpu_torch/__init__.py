@@ -16,7 +16,10 @@ zoo (``schedulers``, the SDE-VE and Karras-VE engines in ``pipelines``, the
 scheduler half of ``factory``); and what a user runs: ``config`` and ``cli``
 (train / resume / sampling / measure / train+measure), the model half of
 ``factory``, the measure (``metrics``, ``models.inception``) and the ANP
-defense (``defense``, ``anp_cli``).
+defense (``defense``, ``anp_cli``); the latent and score models; the
+reference's recipes (``examples``); and scale-out over ranks (``parallel``:
+one process a device, data-parallel, FSDP and tensor-parallel training, the
+multi-rank CLI, measure and ANP).
 """
 
 __version__ = "0.1.0"

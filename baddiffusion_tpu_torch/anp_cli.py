@@ -16,8 +16,12 @@ layout, which both packages load. Output dir
 ``res_anp_{ep}_lr{lr}_pb{budget}[_sched][_{tag}]_{ckpt}`` (anp_config.py:48-51).
 
 It works on a run dir that either package trained. It runs on the card
-unless ``--gpu cpu`` asks for the CPU, in one process (the JAX package's
-mesh branches are not ported: ROADMAP Queue 1 item 11).
+unless ``--gpu cpu`` asks for the CPU. Under torchrun (one process a card,
+``--gpu`` as in ``cli``) each rank steps on its rows of the batch and the γ/β
+gradients are averaged over the ranks, so every rank holds the same
+perturbation; rank 0 alone makes the output dir, logs, samples the grids,
+measures and exports (the JAX package gathers the perturbation for that; here
+rank 0 already holds it), while its peers wait at a barrier.
 """
 
 from __future__ import annotations
@@ -33,13 +37,15 @@ import numpy as np
 import torch
 
 from baddiffusion_tpu_torch import factory
-from baddiffusion_tpu_torch.cli import check_single_device, measure_noise, target_images
-from baddiffusion_tpu_torch.config import device_from_gpu
+from baddiffusion_tpu_torch.cli import measure_noise, target_images
+from baddiffusion_tpu_torch.config import device_from_gpu, join_ranks, run_dir_handshake
 from baddiffusion_tpu_torch.data import DatasetLoader
 from baddiffusion_tpu_torch.defense import init_perturb, make_anp_step, perturb_leaves, perturbed_copy
 from baddiffusion_tpu_torch.device import resolve_device
 from baddiffusion_tpu_torch.metrics import mse as mse_fn
 from baddiffusion_tpu_torch.metrics import ssim as ssim_fn
+from baddiffusion_tpu_torch.parallel import batch_sharding, make_mesh
+from baddiffusion_tpu_torch.parallel.distributed import barrier, is_primary, world_size
 from baddiffusion_tpu_torch.pipelines import batch_sampling
 from baddiffusion_tpu_torch.training import make_optimizer, sample_grids
 from baddiffusion_tpu_torch.training.trainer import step_seed
@@ -78,7 +84,7 @@ class ANPConfig:
     # the per-epoch measure and grids sample in f32 (the reference samples
     # with its unwrapped f32 model); bf16 is opt-in
     eval_dtype: str = "fp32"
-    gpu: Optional[str] = None  # device: unset = cuda, N = cuda:N, cpu = the CPU
+    gpu: Optional[str] = None  # device: unset = cuda, N = cuda:N, cpu = the CPU; a list: rank r's r-th entry
 
 
 def naming_fn(config: ANPConfig) -> str:
@@ -97,7 +103,8 @@ def get_config(argv=None) -> ANPConfig:
     parser.add_argument("--perturb_budget", "-pb", type=float)
     parser.add_argument("--output_dir", "-od", type=str)
     parser.add_argument("--tag", "-t", type=str)
-    parser.add_argument("--gpu", "-g", type=str, help="device: unset = cuda, N = cuda:N, cpu = the CPU")
+    parser.add_argument("--gpu", "-g", type=str, help="device: unset = cuda, N = cuda:N, cpu = the CPU; under "
+                        "torchrun a list 0,1 gives rank r its r-th card (0,0: two ranks on one card, over gloo)")
     parser.add_argument("--ckpt", "-c", type=str, required=True)
     parser.add_argument("--batch", "-b", type=int)
     parser.add_argument("--measure_sample_n", type=int)
@@ -133,9 +140,14 @@ def get_config(argv=None) -> ANPConfig:
         setattr(config, key, inherited)
     config.poison_rate = run_data.get("poison_rate", args_data.get("poison_rate"))
 
-    os.makedirs(config.output_dir, exist_ok=True)
-    with open(os.path.join(config.output_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(config), f, indent=2, default=str)
+    join_ranks(config.gpu)
+
+    def decide():
+        os.makedirs(config.output_dir, exist_ok=True)
+        with open(os.path.join(config.output_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(config), f, indent=2, default=str)
+
+    run_dir_handshake(config.output_dir, decide)
     return config
 
 
@@ -185,8 +197,8 @@ def measure(config: ANPConfig, pipeline, dsl, tracker, epoch: Optional[int] = No
 
 def main(argv=None) -> None:
     config = get_config(argv)
-    check_single_device(config)
     device = resolve_device(device_from_gpu(config.gpu))
+    ranks, primary = world_size(), is_primary()
     dsl = DatasetLoader(
         config.dataset, root=config.dataset_path, batch_size=config.batch,
         seed=config.seed, fake_size=config.fake_size,
@@ -208,8 +220,10 @@ def main(argv=None) -> None:
     else:
         optimizer, lr_schedule = make_optimizer(config.learning_rate, schedule="constant", grad_clip=1.0)
     opt_state = optimizer.init(perturb_leaves(perturb))
+    # the batch's rows over the data ranks (one rank: the whole batch)
+    rows = batch_sharding(make_mesh(device)) if ranks > 1 else None
     step_fn = make_anp_step(model, optimizer, scheduler.config.num_train_timesteps, schedule.alphas,
-                            schedule.alphas_cumprod, perturb_budget=config.perturb_budget, device=device)
+                            schedule.alphas_cumprod, perturb_budget=config.perturb_budget, device=device, data=rows)
 
     def make_pipe():
         # the merged weights in a copy of the UNet; the reference samples
@@ -219,41 +233,53 @@ def main(argv=None) -> None:
         return get_pipeline(scheduler, unet=unet, device=device,
                             compute_dtype=torch.bfloat16 if config.eval_dtype == "bf16" else None)
 
-    tracker = Tracker(os.path.join(config.output_dir, "logs"), project=config.project,
-                      run_name=os.path.basename(config.output_dir))
+    tracker = None
+    if primary:  # one rank logs
+        tracker = Tracker(os.path.join(config.output_dir, "logs"), project=config.project,
+                          run_name=os.path.basename(config.output_dir))
     gstep = 0
     last_measure = None
     try:
+        barrier("anp_first_step")  # the counterpart of the JAX command line's AlignedStep
         for epoch in range(config.epoch):
             for batch in dsl.epoch_batches(epoch):
+                if rows is not None:
+                    batch = rows(batch)
                 generator = torch.Generator(device).manual_seed(step_seed(config.seed, gstep))
                 perturb, opt_state, metrics = step_fn(perturb, opt_state, batch["image_u8"], batch["is_clean"],
                                                       dsl.trigger, dsl.target, dsl.mask, generator)
-                logs = {k: float(v) for k, v in metrics.items()}
-                logs.update({"epoch": epoch, "step": gstep, "lr": float(lr_schedule(gstep))})
-                tracker.log(logs, step=gstep)
+                if tracker is not None:
+                    logs = {k: float(v) for k, v in metrics.items()}
+                    logs.update({"epoch": epoch, "step": gstep, "lr": float(lr_schedule(gstep))})
+                    tracker.log(logs, step=gstep)
                 gstep += 1
             if (epoch + 1) % config.save_image_epochs == 0:
-                pipe = make_pipe()
-                sample_grids(pipe, dsl.trigger, config.output_dir, epoch, sample_n=config.eval_sample_n,
-                             num_inference_steps=config.sampling_steps, seed=config.seed)
-                last_measure = (epoch, measure(config, pipe, dsl, tracker, epoch=epoch))
+                if primary:
+                    pipe = make_pipe()
+                    sample_grids(pipe, dsl.trigger, config.output_dir, epoch, sample_n=config.eval_sample_n,
+                                 num_inference_steps=config.sampling_steps, seed=config.seed)
+                    last_measure = (epoch, measure(config, pipe, dsl, tracker, epoch=epoch))
+                barrier("anp_eval", timeout_s=3600.0)
 
-        Log.info("Save model and sample images")
-        pipe = make_pipe()
-        pipe.save_pretrained(config.output_dir)
-        sample_grids(pipe, dsl.trigger, config.output_dir, "final", sample_n=config.eval_sample_n,
-                     num_inference_steps=config.sampling_steps, seed=config.seed)
-        if last_measure is not None and last_measure[0] == config.epoch - 1:
-            # the last epoch's measure sampled this very perturbation with the
-            # same seed: record its scores under the bare keys
-            mse_sc, ssim_sc = last_measure[1]
-            sc = update_score_file(config, mse_sc, ssim_sc, epoch=None)
-            tracker.log(dict(sc), step=dsl.num_batch * config.epoch)
-        else:
-            measure(config, pipe, dsl, tracker, epoch=None)
+        if primary:
+            Log.info("Save model and sample images")
+            pipe = make_pipe()
+            pipe.save_pretrained(config.output_dir)
+            sample_grids(pipe, dsl.trigger, config.output_dir, "final", sample_n=config.eval_sample_n,
+                         num_inference_steps=config.sampling_steps, seed=config.seed)
+            if last_measure is not None and last_measure[0] == config.epoch - 1:
+                # the last epoch's measure sampled this very perturbation with the
+                # same seed: record its scores under the bare keys
+                mse_sc, ssim_sc = last_measure[1]
+                sc = update_score_file(config, mse_sc, ssim_sc, epoch=None)
+                tracker.log(dict(sc), step=dsl.num_batch * config.epoch)
+            else:
+                measure(config, pipe, dsl, tracker, epoch=None)
+        # peers leave only once rank 0 has written everything
+        barrier("anp_done", timeout_s=3600.0)
     finally:
-        tracker.close()
+        if tracker is not None:
+            tracker.close()
 
 
 if __name__ == "__main__":

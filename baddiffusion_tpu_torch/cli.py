@@ -8,10 +8,17 @@ train_loop (:572-645), sampling (:366-419), measure (:477-551) with
     python -m baddiffusion_tpu_torch.cli --mode train --dataset CIFAR10 --batch 128 ...
 
 (the JAX package's flag surface; ``config.py`` has the per-mode rules). It
-runs on the card unless ``--gpu cpu`` asks for the CPU. One process drives
-one device: the JAX package's mesh, FSDP, model-parallel and multi-process
-branches are not ported (ROADMAP Queue 1 item 11), and a run that asks for
-them raises.
+runs on the card unless ``--gpu cpu`` asks for the CPU.
+
+One process drives one device; on several cards, one process a card:
+
+    torchrun --nproc_per_node 2 -m baddiffusion_tpu_torch.cli --mode train ... --gpu 0,1
+
+Training then runs data-parallel over the ranks (``--param_sharding fsdp``
+splits the parameters and Adam moments, ``--model_parallel m`` the widest
+layers' output channels over m ranks: ``parallel/``), the measure splits its
+chunks round-robin over the ranks and rank 0 scores them, and ``--mode
+sampling`` runs on rank 0. The JAX package runs one process a host instead.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from baddiffusion_tpu_torch.metrics import fid as fid_fn
 from baddiffusion_tpu_torch.metrics import mse as mse_fn
 from baddiffusion_tpu_torch.metrics import ssim as ssim_fn
 from baddiffusion_tpu_torch.metrics import using_real_weights
+from baddiffusion_tpu_torch.parallel import ParallelLayout, make_mesh, place_train_state
+from baddiffusion_tpu_torch.parallel.distributed import barrier, is_primary, rank, world_size
 from baddiffusion_tpu_torch.pipelines import batch_sampling_save
 from baddiffusion_tpu_torch.training import (
     create_train_state,
@@ -54,17 +63,14 @@ from baddiffusion_tpu_torch.utils.logging import Log
 from baddiffusion_tpu_torch.utils.trackers import Tracker
 
 
-def check_single_device(config) -> None:
-    """Refuse what needs more than one process or device (ROADMAP Queue 1
-    item 11), and ``--sample_segment``, which has no meaning here."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("multi-process runs are not ported yet (ROADMAP Queue 1 item 11)")
-    if getattr(config, "model_parallel", 1) > 1 or getattr(config, "param_sharding", "replicated") == "fsdp":
-        raise NotImplementedError("--model_parallel > 1 and --param_sharding fsdp shard over a device mesh, "
-                                  "which is not ported yet (ROADMAP Queue 1 item 11)")
+def check_flags(config) -> None:
+    """Refuse ``--sample_segment``: it bounds the length of an XLA sampling
+    program in the JAX package, and an eager chain has none to bound until
+    CUDA graphs give it one (ROADMAP Queue 1 item 4)."""
     if getattr(config, "sample_segment", None):
         raise ValueError("--sample_segment bounds the length of an XLA sampling program in the JAX package; "
-                         "an eager chain has no program to bound, so the flag has no meaning here")
+                         "an eager chain has no program to bound, so the flag has no meaning here "
+                         "(ROADMAP Queue 1 item 4)")
 
 
 def get_data_loader(config: TrainingConfig) -> DatasetLoader:
@@ -110,9 +116,12 @@ def init_model(config: TrainingConfig, dsl: DatasetLoader):
 
 def run_train(config: TrainingConfig, resume: bool = False) -> DatasetLoader:
     """Train (or resume) the run; returns the loader, so that train+measure
-    does not decode and split the dataset a second time."""
-    check_single_device(config)
+    does not decode and split the dataset a second time. On several ranks,
+    every rank loads the dataset and the same seeded model, then keeps its
+    shards of the train state and its rows of each batch."""
+    check_flags(config)
     device = config.device
+    ranks = world_size()
     dsl = get_data_loader(config)
     model, scheduler, get_pipeline = init_model(config, dsl)
     schedule = scheduler.create_state().schedule
@@ -127,9 +136,17 @@ def run_train(config: TrainingConfig, resume: bool = False) -> DatasetLoader:
         num_training_steps=max(1, config.epoch * dsl.num_batch),
     )
     state = create_train_state(model, optimizer, dsl.trigger, dsl.target, dsl.mask)
+    layout = None
+    if ranks > 1:
+        # the (data, model) mesh of the JAX package's CLI; the state split into this rank's shards
+        layout = ParallelLayout(make_mesh(device, config.model_parallel), model, config.param_sharding,
+                                grad_accum=config.gradient_accumulation_steps)
+        state = place_train_state(state, layout)
+        Log.info(f"rank {rank()} of {ranks}: data {layout.data_size} x model {layout.model_size}, "
+                 f"{config.param_sharding} parameters")
     start_epoch = start_step = 0
     if resume and has_trainer_state(config.output_dir):
-        state, start_epoch, start_step = load_trainer_state(config.output_dir, state)
+        state, start_epoch, start_step = load_trainer_state(config.output_dir, state, layout)
         Log.info(f"resumed from epoch {start_epoch}, step {start_step}")
 
     train_step = make_train_step(
@@ -139,20 +156,26 @@ def run_train(config: TrainingConfig, resume: bool = False) -> DatasetLoader:
         schedule.alphas,
         schedule.alphas_cumprod,
         grad_accum=config.gradient_accumulation_steps,
-        # "auto" is the JAX package's rule: recompute only at 256 px above micro-batch 16
-        use_remat={"on": True, "off": False}.get(config.remat, dsl.image_size >= 256 and config.batch > 16),
+        # "auto" is the JAX package's rule: recompute only at 256 px above
+        # micro-batch 16, counting the rows each data rank holds
+        use_remat={"on": True, "off": False}.get(
+            config.remat, dsl.image_size >= 256 and -(-config.batch // (layout.data_size if layout else 1)) > 16),
         device=device,
+        layout=layout,
     )
 
     def make_pipeline(st):
-        return get_pipeline(scheduler, device=device)
+        # st holds whole parameters; a split layout samples and exports from a whole copy of the model
+        return get_pipeline(scheduler, unet=None if layout is None else layout.full_model(st.params), device=device)
 
-    tracker = Tracker(
-        os.path.join(config.output_dir, "logs"),
-        project=config.project,
-        run_name=os.path.basename(config.output_dir),
-        config=vars(config),
-    )
+    tracker = None
+    if is_primary():  # one rank logs
+        tracker = Tracker(
+            os.path.join(config.output_dir, "logs"),
+            project=config.project,
+            run_name=os.path.basename(config.output_dir),
+            config=vars(config),
+        )
     try:
         train_loop(
             dsl=dsl,
@@ -174,9 +197,11 @@ def run_train(config: TrainingConfig, resume: bool = False) -> DatasetLoader:
             capture_every=config.capture_every,
             profile_steps=config.profile_steps,
             async_ckpt=config.async_ckpt,
+            layout=layout,
         )
     finally:
-        tracker.close()
+        if tracker is not None:
+            tracker.close()
     return dsl
 
 
@@ -197,7 +222,12 @@ def load_pipeline_for_eval(config: TrainingConfig):
 
 
 def run_sampling(config: TrainingConfig, dsl: Optional[DatasetLoader] = None) -> None:
-    check_single_device(config)
+    """The qualitative grids; on several ranks, rank 0 alone samples them
+    (the others would redo the same work into the same files)."""
+    check_flags(config)
+    if not is_primary():
+        Log.info(f"rank {rank()}: sampling runs on rank 0 only")
+        return
     dsl = dsl or get_data_loader(config)
     pipeline = load_pipeline_for_eval(config)
     tag = f"{config.sample_ep}" if config.sample_ep is not None else "final"
@@ -258,9 +288,16 @@ def run_measure(config: TrainingConfig, dsl: Optional[DatasetLoader] = None, res
     generations against the tiled target), reference measure()
     (baddiffusion.py:477-551). The real-image dump is cwd-relative
     (``measure/<dataset>``); the generations go to
-    ``<run>/measure[/ep{n}]/clean|backdoor[_noclip]``."""
-    check_single_device(config)
+    ``<run>/measure[/ep{n}]/clean|backdoor[_noclip]``.
+
+    On several ranks each rank samples its round-robin share of the chunks
+    (a chunk's generator and file names follow its global index, so the
+    directory is the one-rank run's, byte for byte); after a barrier, rank 0
+    alone scores and writes ``score.json``. The run dir is on a file system
+    every rank sees."""
+    check_flags(config)
     device = config.device
+    shard_index, shard_count = rank(), world_size()
     dsl = dsl or get_data_loader(config)
     pipeline = load_pipeline_for_eval(config)
 
@@ -273,7 +310,7 @@ def run_measure(config: TrainingConfig, dsl: Optional[DatasetLoader] = None, res
     backdoor_path = os.path.join(*folder_parts, "backdoor" + suffix)
 
     recomp_clean = recomp_backdoor = recomp
-    if not os.path.isdir(dataset_img_dir):
+    if shard_index == 0 and not os.path.isdir(dataset_img_dir):
         # membership matches the reference's ds.shuffle(seed)[:n] dump
         # (baddiffusion.py:489,503-508): DatasetLoader.real_image_sample
         imgs01 = dsl.real_image_sample(config.measure_sample_n).astype(np.float32) / 255.0
@@ -283,17 +320,26 @@ def run_measure(config: TrainingConfig, dsl: Optional[DatasetLoader] = None, res
     noise = measure_noise(config.seed, pipeline.sample_shape(config.measure_sample_n), device)
     backdoor_noise = noise + torch.as_tensor(dsl.trigger, dtype=torch.float32, device=device)[None]
 
+    # the reuse decisions are taken before any rank samples (a barrier between):
+    # a slow rank must not see a directory a fast one just made and skip its share
     need_clean = resample or not os.path.isdir(clean_path)
     need_backdoor = resample or not os.path.isdir(backdoor_path)
+    barrier("measure_planned")
     steps_kw = {} if config.measure_steps is None else {"num_inference_steps": config.measure_steps}
+    shard_kw = {"shard_index": shard_index, "shard_count": shard_count}
     if need_clean:
         batch_sampling_save(config.measure_sample_n, pipeline, clean_path, init=noise,
-                            max_batch_n=config.eval_max_batch, seed=config.seed, **steps_kw)
+                            max_batch_n=config.eval_max_batch, seed=config.seed, **shard_kw, **steps_kw)
         recomp_clean = True
     if need_backdoor:
         batch_sampling_save(config.measure_sample_n, pipeline, backdoor_path, init=backdoor_noise,
-                            max_batch_n=config.eval_max_batch, seed=config.seed, **steps_kw)
+                            max_batch_n=config.eval_max_batch, seed=config.seed, **shard_kw, **steps_kw)
         recomp_backdoor = True
+    # every rank's PNGs on disk before rank 0 scores the directories
+    barrier("measure_sampled", timeout_s=3600.0)
+    if shard_index != 0:
+        Log.info(f"rank {shard_index}: sampled its chunks; rank 0 scores them")
+        return
 
     fid_sc = mse_sc = ssim_sc = None
     if recomp_clean:

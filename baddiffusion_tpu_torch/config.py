@@ -17,8 +17,15 @@ The reference's ``baddiffusion.py:16-248``:
 ``N`` is ``cuda:N``, ``cpu`` is the CPU (how the tests ask for it). It is
 read from the command line of each run only, never from a run dir's
 ``args.json``, so a run trained on the CPU is not measured there by default.
-One process drives one device: the JAX package's multi-process run-dir
-handshake is not ported (ROADMAP Queue 1 item 11).
+
+One process drives one device. Under torchrun (``WORLD_SIZE`` above 1)
+``setup`` joins the process group first (``parallel.initialize``): rank r
+takes the r-th entry of a ``--gpu`` list (``cuda:LOCAL_RANK`` without one),
+and two ranks given one card (``--gpu 0,0``) talk over gloo, otherwise NCCL.
+Then rank 0 alone makes the overwrite decision and writes the metadata, and
+sets a launch-scoped key in the group's store; its peers wait on that key
+(the JAX package's run-dir handshake), so a stale run dir from an earlier
+launch cannot let a peer start while rank 0 refuses this one.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 from baddiffusion_tpu_torch.data.datasets import DatasetLoader
 from baddiffusion_tpu_torch.data.triggers import Backdoor
 from baddiffusion_tpu_torch.device import resolve_device
+from baddiffusion_tpu_torch.parallel import distributed
 from baddiffusion_tpu_torch.utils.logging import Log
 
 MODE_TRAIN = "train"
@@ -127,13 +135,14 @@ class TrainingConfig:
     split_method: str = "seeded"  # poison split: seeded numpy permutation | "hf" train_test_split
     eval_dtype: str = "fp32"  # sampling/measure UNet compute: fp32 (reference parity) | bf16
     remat: str = "auto"  # train-step recomputation: auto | on | off
-    param_sharding: str = "replicated"  # the JAX package's mesh layouts; one device here
-    model_parallel: int = 1
+    param_sharding: str = "replicated"  # over several ranks: replicated | fsdp (ZeRO-3)
+    model_parallel: int = 1  # tensor-parallel ranks: the mesh is (data = ranks / m, model = m)
     sampling_steps: int = 1000  # inference steps of the train-time sample grids
     capture_every: Optional[int] = None  # movie-frame stride (None: about 50 frames)
     image_size: Optional[int] = None  # overrides the dataset's image size
     # the JAX package's bound on an XLA sampling program's length; parsed
-    # here, and refused by every run (an eager chain has no program to bound)
+    # here, and refused by every run (an eager chain has no program to bound
+    # until CUDA graphs give it one: ROADMAP Queue 1 item 4)
     sample_segment: Optional[int] = None
     measure_steps: Optional[int] = None  # measure's inference steps; None: each pipeline's default
     profile_steps: int = 0  # >0: torch.profiler trace of N train steps under <out>/profile
@@ -148,16 +157,68 @@ class TrainingConfig:
         return resolve_device(device_from_gpu(self.gpu))
 
 
+def _gpu_entries(gpu: Optional[str]) -> List[str]:
+    return [] if not gpu else gpu.split(",")
+
+
 def device_from_gpu(gpu: Optional[str]) -> str:
-    """``--gpu`` → a device: unset is ``cuda``, ``N`` is ``cuda:N``, ``cpu``
-    (or any device string torch reads) is itself. A list of cards
-    (``0,1``) asks for more than one device, which the port does not drive
-    yet (ROADMAP Queue 1 item 11)."""
-    if gpu is None or gpu == "":
-        return "cuda"
-    if "," in gpu:
-        raise NotImplementedError(f"--gpu {gpu}: one process drives one device (ROADMAP Queue 1 item 11)")
-    return f"cuda:{gpu}" if gpu.isdigit() else gpu
+    """``--gpu`` → this rank's device: unset is ``cuda`` (``cuda:LOCAL_RANK``
+    on several ranks), ``N`` is ``cuda:N``, ``cpu`` (or any device string
+    torch reads) is itself; a list (``0,1``) gives rank r its r-th entry.
+    One process drives one device, so a single process given a list of cards
+    raises: launch one process a card with torchrun."""
+    entries = _gpu_entries(gpu)
+    ranks, local = distributed.launched_ranks(), distributed.local_rank()
+    if not entries:
+        return "cuda" if ranks == 1 else f"cuda:{local}"
+    if len(entries) > 1:
+        if ranks == 1:
+            raise ValueError(f"--gpu {gpu} names {len(entries)} devices for one process, and one process drives "
+                             f"one device: launch a process a device, torchrun --nproc_per_node {len(entries)} -m "
+                             f"baddiffusion_tpu_torch.cli ... --gpu {gpu}")
+        if local >= len(entries):
+            raise ValueError(f"--gpu {gpu} names {len(entries)} devices, not one for local rank {local}")
+    entry = entries[local] if len(entries) > 1 else entries[0]
+    return f"cuda:{entry}" if entry.isdigit() else entry
+
+
+def shares_card(gpu: Optional[str]) -> bool:
+    """Whether two ranks of this host run on one card: a list naming a card
+    twice (``0,0``), or one card for several ranks."""
+    entries = _gpu_entries(gpu)
+    if len(entries) == 1:
+        return distributed.launched_ranks() > 1
+    return len(set(entries)) < len(entries)
+
+
+def join_ranks(gpu: Optional[str]) -> None:
+    """Join the process group of a torchrun launch on this rank's device, if
+    this process was launched as one rank of several and has not joined yet."""
+    if distributed.launched_ranks() > 1 and not torch.distributed.is_initialized():
+        distributed.initialize(resolve_device(device_from_gpu(gpu)), shares_card(gpu))
+
+
+def run_dir_handshake(output_dir: str, decide) -> None:
+    """Rank 0 runs ``decide()`` (the overwrite decision and the metadata
+    writes) and tells its peers through the group's store; a peer waits for
+    that word and raises if rank 0 refused the run dir. The key is this
+    handshake's own, so neither a stale run dir nor an earlier handshake of
+    the launch can pass for rank 0's approval."""
+    ranks = distributed.world_size()
+    key = distributed.next_key(f"run_dir:{os.path.abspath(output_dir)}") if ranks > 1 else None
+    if distributed.is_primary():
+        try:
+            decide()
+        except Exception as exc:  # the peers learn of the refusal at once, then it propagates
+            if key is not None:
+                distributed.signal(key, f"refused: {exc}")
+            raise
+        if key is not None:
+            distributed.signal(key, "ok")
+        return
+    word = distributed.wait_for(key)
+    if word != "ok":
+        raise RuntimeError(f"rank {distributed.rank()}: rank 0 refused the run dir {output_dir}: {word}")
 
 
 def naming_fn(config: TrainingConfig) -> str:
@@ -190,7 +251,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--target", "-ta", type=str)
     parser.add_argument("--dataset_load_mode", "-dlm", type=str,
                         choices=[DatasetLoader.MODE_FIXED, DatasetLoader.MODE_FLEX])
-    parser.add_argument("--gpu", "-g", type=str, help="device: unset = cuda, N = cuda:N, cpu = the CPU")
+    parser.add_argument("--gpu", "-g", type=str, help="device: unset = cuda, N = cuda:N, cpu = the CPU; under "
+                        "torchrun a list 0,1 gives rank r its r-th card (0,0: two ranks on one card, over gloo)")
     parser.add_argument("--ckpt", "-c", type=str)
     parser.add_argument("--overwrite", "-o", action="store_true", default=None)
     parser.add_argument("--postfix", "-p", type=str)
@@ -209,9 +271,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--remat", type=str, choices=["auto", "on", "off"],
                         help="train-step recomputation (default auto: 256 px above micro-batch 16)")
     parser.add_argument("--param_sharding", type=str, choices=["replicated", "fsdp"],
-                        help="multi-device parameter layout (fsdp is not ported: ROADMAP Queue 1 item 11)")
+                        help="parameter layout over several ranks (fsdp = ZeRO-3: parameters and Adam moments split)")
     parser.add_argument("--model_parallel", type=int,
-                        help="tensor-parallel axis size (above 1 is not ported: ROADMAP Queue 1 item 11)")
+                        help="tensor-parallel axis size; N ranks become a (data = N/m, model = m) mesh")
     parser.add_argument("--measure_sample_n", type=int, help="override eval sample count (default 2048)")
     parser.add_argument("--measure_steps", type=int, help="override measure-time inference steps (default: pipeline's)")
     parser.add_argument("--sampling_steps", type=int, help="inference steps for train-time sample grids")
@@ -221,7 +283,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="override the dataset-keyed image size (default: 32/64/256 per dataset)")
     parser.add_argument("--sample_segment", type=int,
                         help="the JAX package's bound on a sampling program's length; refused here "
-                        "(an eager chain has no program to bound)")
+                        "(an eager chain has no program to bound: ROADMAP Queue 1 item 4)")
     parser.add_argument("--profile_steps", type=int, help="write a torch.profiler trace of N train steps to <out>/profile")
     parser.add_argument("--async_ckpt", action="store_true", default=None,
                         help="overlap checkpoint disk writes with training")
@@ -302,19 +364,25 @@ def setup(argv: Optional[List[str]] = None) -> TrainingConfig:
         config.output_dir = os.path.join(config.result, naming_fn(config))
 
     Log.info(f"MODE: {config.mode}")
+    join_ranks(config.gpu)
+    primary = distributed.is_primary()
     if config.mode in (MODE_TRAIN, MODE_TRAIN_MEASURE):
-        if not config.overwrite and os.path.isdir(config.output_dir):
-            raise ValueError(
-                f"Output directory: {config.output_dir} has already been created, "
-                "please set overwrite flag --overwrite or -o"
-            )
-        os.makedirs(config.output_dir, exist_ok=True)
-        with open(os.path.join(config.output_dir, "args.json"), "w") as f:
-            json.dump(vars(args), f, indent=2)
-        config.save_json(os.path.join(config.output_dir, "config.json"))
-    elif config.mode == MODE_SAMPLING:
+
+        def decide():
+            if not config.overwrite and os.path.isdir(config.output_dir):
+                raise ValueError(
+                    f"Output directory: {config.output_dir} has already been created, "
+                    "please set overwrite flag --overwrite or -o"
+                )
+            os.makedirs(config.output_dir, exist_ok=True)
+            with open(os.path.join(config.output_dir, "args.json"), "w") as f:
+                json.dump(vars(args), f, indent=2)
+            config.save_json(os.path.join(config.output_dir, "config.json"))
+
+        run_dir_handshake(config.output_dir, decide)
+    elif config.mode == MODE_SAMPLING and primary:
         config.save_json(os.path.join(config.output_dir, "sampling.json"))
-    if config.mode in (MODE_MEASURE, MODE_TRAIN_MEASURE):
+    if config.mode in (MODE_MEASURE, MODE_TRAIN_MEASURE) and primary:
         # train+measure records measure.json too (baddiffusion.py:233-234)
         config.save_json(os.path.join(config.output_dir, "measure.json"))
 

@@ -14,22 +14,26 @@ reference), and records can be filtered by label.
 The loader ships ``{image_u8, is_clean, label}`` in uint8; normalisation and
 trigger compositing run on the device (``data/poison.py``). Above
 ``max_ram_bytes`` the decoded images live in a read-only memmap, decoded once
-into ``<root>/.decoded/`` and streamed per batch. Not ported yet: the
-multi-process wait for a peer's decode cache (the ``parallel/`` item);
-every process here builds the cache itself, which concurrent writers
-survive (a pid-unique scratch file, installed atomically).
+into ``<root>/.decoded/`` and streamed per batch. On several ranks, a rank
+other than 0 first waits for rank 0's cache while rank 0's scratch file is
+visible and its heartbeat advances, and decodes its own copy after a grace
+time when none appears (a dataset root per host); concurrent writers are
+safe either way (a pid-unique scratch file, installed atomically).
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import threading
+import time
 from typing import Dict, Iterator, Optional, Sequence, Union
 
 import numpy as np
 
 from baddiffusion_tpu_torch.data.poison import poison_batch_host
 from baddiffusion_tpu_torch.data.triggers import DEFAULT_VMAX, DEFAULT_VMIN, Backdoor, trigger_mask
+from baddiffusion_tpu_torch.parallel.distributed import rank, world_size
 from baddiffusion_tpu_torch.utils.image import list_image_files
 from baddiffusion_tpu_torch.utils.logging import Log
 
@@ -83,12 +87,40 @@ def _touch_periodically(path: str, stop: threading.Event) -> None:
             return
 
 
+def _wait_for_peer_cache(cache: str, grace_s: float = 15.0, stall_s: float = 180.0) -> None:
+    """A rank other than 0: wait for another rank's decode cache while one
+    is observably being written; return (the caller then decodes) as soon as
+    waiting is pointless. A writer's ``<cache>.tmp.<pid>`` whose mtime
+    advances keeps the wait going until the cache appears, or until the
+    heartbeat stops for ``stall_s`` (the writer died). No scratch file within
+    ``grace_s``: a dataset root per host, so decode locally."""
+    grace_end = time.monotonic() + grace_s
+    last_progress, last_mtime = time.monotonic(), -1.0
+    while not os.path.exists(cache):
+        mtimes = []
+        for path in glob.glob(cache + ".tmp.*"):
+            try:
+                mtimes.append(os.path.getmtime(path))
+            except OSError:  # the writer just renamed or removed it
+                pass
+        if mtimes:
+            if max(mtimes) != last_mtime:
+                last_mtime, last_progress = max(mtimes), time.monotonic()
+            if time.monotonic() - last_progress > stall_s:
+                return
+        elif time.monotonic() > grace_end:
+            return
+        time.sleep(0.5)
+
+
 def _build_memmap(cache: str, shape, fill) -> np.ndarray:
     """Decode once, read forever: ``fill(out)`` writes into a fresh ``.npy``
     memmap (a pid-unique scratch file, so concurrent writers never truncate
     each other's live mapping, installed with the atomic ``os.replace``),
     then the store is reopened read-only with mmap, so host RAM stays bounded
     at any dataset size. An existing cache of another shape raises."""
+    if not os.path.exists(cache) and world_size() > 1 and rank() != 0:
+        _wait_for_peer_cache(cache)
     if not os.path.exists(cache):
         tmp = f"{cache}.tmp.{os.getpid()}"
         stop_heartbeat = threading.Event()

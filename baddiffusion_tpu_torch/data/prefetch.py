@@ -7,14 +7,16 @@ consumer's stream waits on that event before anything reads the batch (the
 per-batch form of ``wait_stream``). Each tensor is marked as used on the
 consumer's stream (``record_stream``), so the caching allocator does not hand
 its memory to a later copy while the consumer's kernels may still read it.
-On a CPU device the thread only wraps the arrays as tensors.
+On a CPU device the thread only wraps the arrays as tensors. With ``rows``
+(``parallel.batch_sharding``), each rank stages only its rows of each
+global batch, as the JAX loop feeds each process's rows.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -25,18 +27,22 @@ _SENTINEL = object()
 
 
 def device_prefetch(
-    batches: Iterator[Dict[str, np.ndarray]], device: DeviceLike = None, size: int = 2
+    batches: Iterator[Dict[str, np.ndarray]], device: DeviceLike = None, size: int = 2,
+    rows: Optional[Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield ``batches`` as dicts of tensors on ``device`` (CUDA unless the
     caller asks otherwise; raises without a GPU), keeping ``size`` staged
-    ahead. An exception in the source iterator is raised here, in the
-    consumer. Closing the generator early stops the thread."""
+    ahead; ``rows(batch)`` first keeps this rank's rows. An exception in the
+    source iterator is raised here, in the consumer. Closing the generator
+    early stops the thread."""
     device = resolve_device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     q: "queue.Queue" = queue.Queue(maxsize=size)
     stop = threading.Event()
 
     def stage(batch):
+        if rows is not None:
+            batch = rows(batch)
         if stream is None:
             return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}, None
         with torch.cuda.stream(stream):

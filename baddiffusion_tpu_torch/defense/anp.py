@@ -16,6 +16,11 @@ conv is γ·(W∗x + b) + β, so the perturbation ``{conv name: {"gamma",
 ``torch.func.functional_call``; its own parameters stay frozen on the device
 and take no gradient, so the step's backward carries the gradient to γ/β
 through the activations alone (K2's dx path in every GroupNorm+SiLU).
+
+On several ranks (``data``, a ``parallel.batch_sharding``) each rank steps on
+its rows of the global batch, drawing t and ε for the whole batch and keeping
+its rows; the γ/β gradients and the metrics are averaged over the data ranks
+before the clip and Adam, so every rank holds the same perturbation.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from torch.func import functional_call
 from baddiffusion_tpu_torch.attack.loss import q_sample_backdoor, reduce_loss
 from baddiffusion_tpu_torch.data.poison import poison_batch
 from baddiffusion_tpu_torch.device import DeviceLike, resolve_device
+from baddiffusion_tpu_torch.parallel.layout import all_reduce_flat
+from baddiffusion_tpu_torch.parallel.mesh import RowSharding
 from baddiffusion_tpu_torch.training.optim import AdamState, Optimizer
 
 Perturb = Dict[str, Dict[str, torch.Tensor]]
@@ -109,10 +116,13 @@ class ANPStep:
     R = 0, the trigger composite and the backdoor target only feed the
     diagnostic. γ/β are updated in place; the metrics are 0-dim f32 tensors
     on the device. t and ε come from ``generator`` (t first), or are handed
-    in, as in the train step."""
+    in, as in the train step. With ``data``, ``image_u8`` and ``is_clean``
+    are this rank's rows, ``timesteps``/``noise`` the global batch's, and the
+    metrics the global means."""
 
     def __init__(self, model, optimizer: Optimizer, num_train_timesteps: int, alphas, alphas_cumprod,
-                 perturb_budget: Optional[float], vmin: float, vmax: float, device: torch.device):
+                 perturb_budget: Optional[float], vmin: float, vmax: float, device: torch.device,
+                 data: Optional[RowSharding] = None):
         params = list(model.parameters())
         if params[0].device.type != device.type:
             raise ValueError(f"the model's parameters are on {params[0].device}, the step runs on {device}")
@@ -125,6 +135,7 @@ class ANPStep:
         self.alphas_cumprod = torch.as_tensor(np.asarray(alphas_cumprod), dtype=torch.float32).to(self.device)
         self.perturb_budget = perturb_budget
         self.vmin, self.vmax = vmin, vmax
+        self.data = data or RowSharding(None, 0, 1)
 
     def __call__(self, perturb: Perturb, opt_state: AdamState, image_u8, is_clean, trigger, target, mask,
                  generator: Optional[torch.Generator], timesteps=None, noise=None
@@ -138,17 +149,16 @@ class ANPStep:
         is_clean = torch.as_tensor(is_clean).to(dev)
         image, R, tgt = poison_batch(image_u8, is_clean, const(trigger), const(target), const(mask),
                                      self.vmin, self.vmax)
-        b = image_u8.shape[0]
+        b, data = image_u8.shape[0], self.data
         if (timesteps is None or noise is None) and generator is None:
             raise ValueError("pass a generator, or both timesteps and noise")
+        # the draws of the whole batch (every data rank's rows), then this rank's
         if timesteps is None:
-            timesteps = torch.randint(0, self.num_train_timesteps, (b,), generator=generator, device=dev)
-        else:
-            timesteps = torch.as_tensor(timesteps).to(dev, torch.long)
+            timesteps = torch.randint(0, self.num_train_timesteps, (b * data.count,), generator=generator, device=dev)
+        timesteps = data(torch.as_tensor(timesteps).to(dev, torch.long))
         if noise is None:
-            noise = torch.randn(image.shape, generator=generator, device=dev)
-        else:
-            noise = torch.as_tensor(noise).to(dev, torch.float32)
+            noise = torch.randn((b * data.count,) + tuple(image.shape[1:]), generator=generator, device=dev)
+        noise = data(torch.as_tensor(noise).to(dev, torch.float32))
 
         leaves = perturb_leaves(perturb)
         for t in leaves:
@@ -164,10 +174,14 @@ class ANPStep:
         with torch.no_grad():
             _, bd_target = q_sample_backdoor(self.alphas, self.alphas_cumprod, tgt, R, timesteps, noise)
             backdoor_mse = reduce_loss(pred.detach(), bd_target, "l2")
+            metrics = [loss.detach(), clean_loss.detach(), backdoor_mse]
+            if data.group is not None:  # the global means, the same on every rank
+                all_reduce_flat(grads + metrics, data.group)
+                if data.count > 1:
+                    torch._foreach_div_(grads + metrics, float(data.count))
         self.optimizer.update(grads, opt_state, leaves)
         clip_perturb(perturb, self.perturb_budget)
-        return perturb, opt_state, {"loss": loss.detach(), "clean_mse": clean_loss.detach(),
-                                    "backdoor_mse": backdoor_mse}
+        return perturb, opt_state, dict(zip(("loss", "clean_mse", "backdoor_mse"), metrics))
 
 
 def make_anp_step(
@@ -180,9 +194,11 @@ def make_anp_step(
     vmin: float = -1.0,
     vmax: float = 1.0,
     device: DeviceLike = None,
+    data: Optional[RowSharding] = None,
 ) -> ANPStep:
     """Build the ANP step on ``device`` (CUDA unless the caller asks
     otherwise; the model must be there already). The model's own parameters
-    are frozen (``requires_grad_(False)``): only γ/β move."""
+    are frozen (``requires_grad_(False)``): only γ/β move. ``data`` (the
+    counterpart of the JAX step's ``mesh``) runs it as one rank of several."""
     return ANPStep(model, optimizer, num_train_timesteps, alphas, alphas_cumprod, perturb_budget, vmin, vmax,
-                   resolve_device(device))
+                   resolve_device(device), data)

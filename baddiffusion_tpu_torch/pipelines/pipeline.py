@@ -11,8 +11,14 @@ chain's sample before clipping). With ``compute_dtype`` the UNet runs on a
 copy of its weights cast once per call (``UNet2DModel.compute_copy``: the
 GroupNorm affines stay f32); the scheduler update stays f32.
 
-Not ported: segment mode (``segment_steps``), which bounds the length of an
-XLA program and has no counterpart in an eager chain; and the device mesh.
+With ``mesh`` set (a ``parallel.make_mesh`` mesh; every rank calls the
+pipeline alike), a call splits its batch over the data ranks, padded with
+copies of row 0: every rank draws the initial latent and each step's noise
+for the whole batch, in the one-rank order, and keeps its rows; the result is
+all-gathered, so the images are the one-rank call's. The JAX package's
+``mesh_sample_shardings`` has no counterpart beyond this. Not ported: segment
+mode (``segment_steps``), which bounds the length of an XLA program and has
+no counterpart in an eager chain (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -29,7 +35,17 @@ import torch
 from baddiffusion_tpu_torch.device import DeviceLike, resolve_device
 from baddiffusion_tpu_torch.io import load_unet, save_unet
 from baddiffusion_tpu_torch.models.unet2d import UNet2DModel
-from baddiffusion_tpu_torch.pipelines.sampler import NoiseSource, chain_images, sample_chain
+from baddiffusion_tpu_torch.parallel.distributed import take_rows
+from baddiffusion_tpu_torch.parallel.layout import all_gather_dim
+from baddiffusion_tpu_torch.parallel.mesh import DATA_AXIS, axis
+from baddiffusion_tpu_torch.pipelines.sampler import (
+    NoiseSource,
+    chain_images,
+    noise_drawer,
+    pad_batch_for_mesh,
+    sample_chain,
+    trim_padded,
+)
 from baddiffusion_tpu_torch.schedulers import load_scheduler
 from baddiffusion_tpu_torch.utils.image import batchify, save_images
 
@@ -69,6 +85,7 @@ class DiffusionPipeline:
         self.hf_class_name = hf_class_name
         # UNet compute precision for sampling; None keeps the UNet's own dtype
         self.compute_dtype = compute_dtype
+        self.mesh = None  # a device mesh: each call splits its batch over the data ranks
 
     def save_pretrained(self, save_directory: str) -> None:
         os.makedirs(save_directory, exist_ok=True)
@@ -145,6 +162,15 @@ class DiffusionPipeline:
             init = torch.as_tensor(init, dtype=torch.float32, device=self.device)
 
         state = self.scheduler.set_timesteps(self.scheduler.create_state(), n)
+        group, count, index = axis(self.mesh, DATA_AXIS)
+        batch = init.shape[0]
+        if count > 1:  # this rank's rows of the padded batch; every draw made whole first
+            draw = noise_drawer(init, generator, noise_source)
+
+            def noise_source(k):
+                return take_rows(pad_batch_for_mesh(draw(k), count)[0], index, count)
+
+            init = take_rows(pad_batch_for_mesh(init, count)[0], index, count)
         sample, movie = sample_chain(
             self.scheduler, state, self._compute_unet(), init,
             generator=generator, noise_source=noise_source, start_from=start_from,
@@ -152,6 +178,10 @@ class DiffusionPipeline:
         )
         images = chain_images(self.scheduler, sample)
         movie = None if movie is None else chain_images(self.scheduler, movie)
+        if count > 1:
+            sample = all_gather_dim(sample, 0, group, count)[:batch]
+            images, movie = trim_padded(all_gather_dim(images, 0, group, count),
+                                        None if movie is None else all_gather_dim(movie, 1, group, count), batch)
         if output_type == "pt":
             return PipelineOutput(images=images, movie=movie, sample=sample)
         return PipelineOutput(images=images.cpu().numpy(), movie=None if movie is None else movie.cpu().numpy())

@@ -176,3 +176,18 @@ def chain_images(scheduler, sample: torch.Tensor) -> torch.Tensor:
 def to_images(sample: torch.Tensor) -> torch.Tensor:
     """[-1, 1] model space → [0, 1] image space."""
     return torch.clamp(sample / 2.0 + 0.5, 0.0, 1.0)
+
+
+def pad_batch_for_mesh(x: torch.Tensor, count: int) -> Tuple[torch.Tensor, int]:
+    """Pad ``x`` with copies of row 0 so that its batch divides ``count``
+    data ranks; returns ``(padded, pad)``. ``trim_padded`` drops the rows."""
+    pad = (-x.shape[0]) % count
+    if pad:
+        x = torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))])
+    return x, pad
+
+
+def trim_padded(images: torch.Tensor, movie: Optional[torch.Tensor], batch_size: int):
+    """Drop the padding rows (the movie's batch is its second axis:
+    ``[frames, batch, ...]``)."""
+    return images[:batch_size], None if movie is None else movie[:, :batch_size]

@@ -23,10 +23,18 @@ into a fresh ``<out>/ckpt.v{N}``, never over the live checkpoint, and
 save or at ``finish_async_saves()``); superseded directories are deleted
 only after that. A crash inside the window leaves ``data.json`` naming the
 previous complete checkpoint.
+
+On several ranks every rank calls the save: a split layout's shards are
+gathered first (``layout``, a ``parallel.ParallelLayout``), so the file on
+disk is the one-rank file; rank 0 alone writes it, ``data.json`` and the HF
+export, and a barrier ends each write. The async save stays one-rank only,
+as the JAX package's does: on several ranks the save is synchronous. A
+resume reads the one-rank file on every rank and keeps each rank's shards.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -34,6 +42,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from baddiffusion_tpu_torch.parallel.distributed import barrier, is_primary, world_size
 
 CKPT_SUBDIR = "ckpt"
 DATA_JSON = "data.json"
@@ -83,16 +93,18 @@ def _gc_stale_ckpts(out_dir: str, keep: str) -> None:
             shutil.rmtree(os.path.join(out_dir, name), ignore_errors=True)
 
 
-def _host_copy(state) -> Dict[str, torch.Tensor]:
-    """Every tensor of the state, copied to contiguous host memory now."""
+def _host_copy(state, layout=None) -> Dict[str, torch.Tensor]:
+    """Every tensor of the state, whole, copied to contiguous host memory
+    now (gathering a split layout's shards: a collective)."""
 
     def host(t: torch.Tensor) -> torch.Tensor:
         return t.detach().to("cpu", memory_format=torch.contiguous_format, copy=True)
 
     names = list(state.params)
-    flat = {f"params/{k}": host(p) for k, p in state.params.items()}
-    flat.update({f"mu/{k}": host(m) for k, m in zip(names, state.opt_state.mu)})
-    flat.update({f"nu/{k}": host(v) for k, v in zip(names, state.opt_state.nu)})
+    whole = (lambda name, t: t) if layout is None or not layout.sharded else layout.unshard
+    flat = {f"params/{k}": host(whole(k, p)) for k, p in state.params.items()}
+    flat.update({f"mu/{k}": host(whole(k, m)) for k, m in zip(names, state.opt_state.mu)})
+    flat.update({f"nu/{k}": host(whole(k, v)) for k, v in zip(names, state.opt_state.nu)})
     flat["count"] = torch.tensor(state.opt_state.count, dtype=torch.int64)
     flat["step"] = torch.tensor(state.step, dtype=torch.int64)
     return flat
@@ -142,26 +154,39 @@ def finish_async_saves() -> None:
     _async_writer.finish()
 
 
-def save_trainer_state(out_dir: str, state, epoch: int, async_save: bool = False) -> None:
+def save_trainer_state(out_dir: str, state, epoch: int, async_save: bool = False, layout=None
+                       ) -> Dict[str, torch.Tensor]:
     """Write the trainer state and ``<out>/data.json``; see the module note.
-    Every tensor is on the host when this returns, sync or async."""
+    Every tensor is on the host when this returns, sync or async; returns
+    those host copies, whole."""
+    flat = _host_copy(state, layout)
+    if world_size() > 1:  # every rank gathered; rank 0 writes
+        try:
+            if is_primary():
+                _write_state(os.path.join(out_dir, CKPT_SUBDIR), flat)
+                _write_data_json(out_dir, epoch, state.step)
+                _gc_stale_ckpts(out_dir, keep=CKPT_SUBDIR)
+        finally:  # a failed write on rank 0 must not leave its peers waiting
+            barrier("ckpt_done")
+        return flat
     os.makedirs(out_dir, exist_ok=True)
-    flat = _host_copy(state)
     # the previous async write done and its data.json published before this
     # save adds a version above it or supersedes it
     finish_async_saves()
     if async_save:
         _async_writer.submit(out_dir, epoch, state.step, _next_version_subdir(out_dir), flat)
-        return
+        return flat
     _write_state(os.path.join(out_dir, CKPT_SUBDIR), flat)
     _write_data_json(out_dir, epoch, state.step)
     _gc_stale_ckpts(out_dir, keep=CKPT_SUBDIR)
+    return flat
 
 
 @torch.no_grad()
-def load_trainer_state(out_dir: str, state_template) -> Tuple[object, int, int]:
+def load_trainer_state(out_dir: str, state_template, layout=None) -> Tuple[object, int, int]:
     """Restore the checkpoint into ``state_template`` in place (a
-    ``TrainState`` of the same model and optimizer, on any device) and
+    ``TrainState`` of the same model and optimizer, on any device; with a
+    ``layout``, this rank's shards of it, cut from the whole tensors) and
     return ``(state, start_epoch, start_step)``. ``start_epoch`` is the
     *saved* epoch, so a resumed ``train_loop`` runs that epoch again: the
     reference's resume does the same."""
@@ -180,10 +205,11 @@ def load_trainer_state(out_dir: str, state_template) -> Tuple[object, int, int]:
     targets += [(f"mu/{k}", m) for k, m in zip(names, state.opt_state.mu)]
     targets += [(f"nu/{k}", v) for k, v in zip(names, state.opt_state.nu)]
     for key, t in targets:
-        if flat[key].shape != t.shape or flat[key].dtype != t.dtype:
-            raise ValueError(f"{key}: checkpoint has {tuple(flat[key].shape)} {flat[key].dtype}, "
+        src = flat[key] if layout is None else layout.shard(key.partition("/")[2], flat[key])
+        if src.shape != t.shape or src.dtype != t.dtype:
+            raise ValueError(f"{key}: checkpoint has {tuple(src.shape)} {src.dtype}, "
                              f"the state {tuple(t.shape)} {t.dtype}")
-        t.copy_(flat[key])
+        t.copy_(src)
     state.opt_state.count = int(flat["count"])
     state.step = int(flat["step"])
     return state, int(data["epoch"]), int(data["step"])
@@ -196,19 +222,28 @@ def save_checkpoint(
     make_pipeline: Optional[Callable] = None,
     save_all_model_epochs: bool = False,
     async_save: bool = False,
+    layout=None,
 ) -> None:
     """The reference's two formats: the trainer state, then the HF export of
     ``make_pipeline(state)`` (any object with ``save_pretrained``) to
     ``out_dir`` and, with ``save_all_model_epochs``, to
     ``ep_model_path(out_dir, epoch)``. The export is written before this
     returns, from the same step's parameters, even when the trainer state's
-    write is async."""
-    save_trainer_state(out_dir, state, epoch, async_save=async_save)
-    if make_pipeline is not None:
-        pipe = make_pipeline(state)
-        pipe.save_pretrained(out_dir)
-        if save_all_model_epochs:
-            pipe.save_pretrained(ep_model_path(out_dir, epoch))
+    write is async. On several ranks every rank calls it; ``make_pipeline``
+    runs on rank 0 alone, given the state with whole parameters."""
+    flat = save_trainer_state(out_dir, state, epoch, async_save=async_save, layout=layout)
+    if make_pipeline is None:
+        return
+    if layout is not None and layout.sharded:
+        state = dataclasses.replace(state, params={k: flat[f"params/{k}"] for k in state.params})
+    try:
+        if is_primary():
+            pipe = make_pipeline(state)
+            pipe.save_pretrained(out_dir)
+            if save_all_model_epochs:
+                pipe.save_pretrained(ep_model_path(out_dir, epoch))
+    finally:  # a failed export on rank 0 must not leave its peers waiting
+        barrier("hf_export")
 
 
 def has_trainer_state(out_dir: str) -> bool:

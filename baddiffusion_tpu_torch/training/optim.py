@@ -125,11 +125,15 @@ class Optimizer:
         )
 
     @torch.no_grad()
-    def update(self, grads: List[torch.Tensor], state: AdamState, params: List[torch.Tensor]) -> torch.Tensor:
+    def update(self, grads: List[torch.Tensor], state: AdamState, params: List[torch.Tensor],
+               norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step: clip ``grads``, advance ``state``, move ``params``.
         Returns the gradients' global norm before the clip (a 0-dim tensor on
-        their device; nothing waits for the device)."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        their device; nothing waits for the device). ``norm`` is that norm
+        when the gradients are shards whose norm only the ranks together know
+        (``parallel.ParallelLayout.grad_norm``)."""
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         if self.grad_clip is not None:
             torch._foreach_mul_(grads, torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm))
         lr = self.schedule(state.count)

@@ -12,13 +12,21 @@ Everything runs on the device of the state it is given. The draws of a step
 come from a ``torch.Generator`` on that device seeded from ``(seed,
 global_step)`` alone (the counterpart of JAX's ``fold_in(key,
 global_step)``), so a resumed run draws what an uninterrupted one drew at
-the same step. Not ported yet: the ``mesh`` argument and the multi-process
-alignment of the first step (the ``parallel/`` item).
+the same step.
+
+On several ranks (``layout``, the counterpart of the JAX loop's ``mesh``)
+every rank runs the loop: the prefetch stages the rank's rows of each
+global batch, a barrier starts the first step on every rank together (the
+counterpart of the JAX loop's ``AlignedStep``), the grids gather the
+parameters and rank 0 alone samples and writes them, and every rank joins
+the checkpoints (``training.checkpoint``). Only a rank with a ``tracker``
+logs.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import traceback
 from typing import Callable, Optional
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from baddiffusion_tpu_torch.data.prefetch import device_prefetch
+from baddiffusion_tpu_torch.parallel.distributed import barrier, is_primary
 from baddiffusion_tpu_torch.training.checkpoint import finish_async_saves, save_checkpoint
 from baddiffusion_tpu_torch.utils.image import save_image_grid
 from baddiffusion_tpu_torch.utils.logging import Log
@@ -111,13 +120,15 @@ def train_loop(
     log_every: int = 20,
     profile_steps: int = 0,
     async_ckpt: bool = False,
+    layout=None,
 ):
     """Train epochs ``start_epoch`` … ``epochs − 1`` and return ``(state,
     global_step)``. ``train_step(state, image_u8, is_clean, generator)``
     returns ``(state, {"loss": ...})``; ``make_pipeline(state)`` returns the
-    pipeline the grids sample from and the HF export saves. Crash-tolerant:
-    the loop checkpoints on the way out unless its last checkpoint already
-    holds this step, then re-raises."""
+    pipeline the grids sample from and the HF export saves (given the state
+    with whole parameters). ``tracker`` may be None (a rank that does not
+    log). Crash-tolerant: the loop checkpoints on the way out unless its last
+    checkpoint already holds this step, then re-raises."""
     device = next(iter(state.params.values())).device
     global_step = start_step
     last_saved_step = None
@@ -125,14 +136,18 @@ def train_loop(
 
     def checkpoint(epoch: int) -> None:
         nonlocal last_saved_step
-        save_checkpoint(out_dir, state, epoch, make_pipeline, save_all_model_epochs, async_save=async_ckpt)
+        save_checkpoint(out_dir, state, epoch, make_pipeline, save_all_model_epochs, async_save=async_ckpt,
+                        layout=layout)
         last_saved_step = global_step
 
     cur_epoch = start_epoch
+    rows = None if layout is None else layout.batch
+    barrier("first_step")
     try:
         for epoch in range(start_epoch, epochs):
             cur_epoch = epoch
-            with contextlib.closing(device_prefetch(dsl.epoch_batches(epoch), device, size=2)) as stream:
+            batches = dsl.epoch_batches(epoch)
+            with contextlib.closing(device_prefetch(batches, device, size=2, rows=rows)) as stream:
                 for batch in stream:
                     if profile_steps and global_step == start_step + 2:
                         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -145,7 +160,7 @@ def train_loop(
                         prof = None
                     generator = torch.Generator(device).manual_seed(step_seed(seed, global_step))
                     state, metrics = train_step(state, batch["image_u8"], batch["is_clean"], generator)
-                    if global_step % log_every == 0:
+                    if tracker is not None and global_step % log_every == 0:
                         logs = {
                             "loss": float(metrics["loss"]),
                             "lr": float(lr_schedule(global_step)),
@@ -157,11 +172,17 @@ def train_loop(
 
             # (epoch + 1) % N, the reference's cadence: no burst right after epoch 0
             if (epoch + 1) % save_image_epochs == 0 or epoch == epochs - 1:
+                st = state
+                if layout is not None and layout.sharded:  # every rank joins the gather
+                    st = dataclasses.replace(state, params=layout.full_params(state.params))
                 try:
-                    sample_grids(make_pipeline(state), dsl.trigger, out_dir, epoch, sample_n=sample_n,
-                                 num_inference_steps=sampling_steps, seed=seed, capture_every=capture_every)
+                    if is_primary():
+                        sample_grids(make_pipeline(st), dsl.trigger, out_dir, epoch, sample_n=sample_n,
+                                     num_inference_steps=sampling_steps, seed=seed, capture_every=capture_every)
                 except Exception:  # the grids are diagnostics: training goes on, as in the reference
                     Log.error("sampling failed:\n" + traceback.format_exc())
+                # peers wait for rank 0's grids within the store's bound, not a collective's
+                barrier("grids", timeout_s=3600.0)
             if (epoch + 1) % save_model_epochs == 0 or epoch == epochs - 1:
                 checkpoint(epoch)
     except KeyboardInterrupt:

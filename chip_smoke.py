@@ -156,6 +156,25 @@
    of a forward with a backward. Profiling goes through
    ``baddiffusion_tpu_torch.utils.profiling``.
 
+11. Scale-out (run last), the full-width scratch UNet at B=128. (a) One
+   bf16 train step through a one-rank NCCL world (``parallel.initialize``
+   on a FileStore, ``make_mesh``, a replicated ``ParallelLayout``): bitwise
+   the bare step's loss, grad norm and parameters on the same weights,
+   batch and draws. (b) Two ranks sharing the card over gloo (``--gpu
+   0,0``; this script run as ``--scaleout-rank`` subprocesses), 64 rows
+   each, in four layouts: replicated, FSDP, TP (data 1 x model 2) and TP +
+   FSDP. Per layout: 2 f32 steps against the one-rank f32 steps at B=128
+   (loss and grad norm rtol 1e-4; parameters within 2*lr a step, all but
+   1e-3 of them within 1e-6); 3 bf16 steps with bench.py's optimizer, the
+   ranks bitwise equal, a checkpoint after step 2; then a fresh pair of
+   ranks restores it and repeats step 3 bitwise. Each rank's launch counts
+   (65 K1, 65 K2, 6 K3 a step), ms a step per rank and the share spent in
+   the collectives (gloo goes through the host: no measure of NCCL across
+   cards). (c) ``cli.main`` train+measure (FAKE 256, batch 128, DDIM grids
+   and a measure of 32 + 32 images at 10 steps) and ``anp_cli`` (1 epoch) on
+   the two ranks: rank 0's files and scores; each rank's launches against
+   its UNet forwards.
+
 The last line is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its numbers. Any failed check raises, and the script exits
 non-zero. Without CUDA it exits non-zero and prints no result.
@@ -176,7 +195,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from baddiffusion_tpu_torch import anp_cli, cli, factory, ops
+from baddiffusion_tpu_torch import anp_cli, cli, factory, ops, parallel
 from baddiffusion_tpu_torch import model_configs as mc
 from baddiffusion_tpu_torch.data import Backdoor, DatasetLoader, trigger_mask
 from baddiffusion_tpu_torch.defense import perturb_leaves
@@ -192,6 +211,7 @@ from baddiffusion_tpu_torch.models import (
 )
 from baddiffusion_tpu_torch.models.inception import FIDInceptionV3
 from baddiffusion_tpu_torch.ops import _build
+from baddiffusion_tpu_torch.parallel import distributed
 from baddiffusion_tpu_torch.pipelines import DiffusionPipeline, LDMPipeline, sample_chain
 from baddiffusion_tpu_torch.schedulers import (
     DDIMConfig,
@@ -213,6 +233,7 @@ from baddiffusion_tpu_torch.training import (
     save_trainer_state,
     train_loop,
 )
+from baddiffusion_tpu_torch.training.trainer import step_seed
 from baddiffusion_tpu_torch.utils import Tracker, profiling
 from baddiffusion_tpu_torch.utils.profiling import device_profile, time_ms
 
@@ -2096,6 +2117,325 @@ def phase_published_demos(dev, smi: str, root: str, runs: list) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi}")
 
 
+# phase 11: scale-out on the one card. (a) a one-rank NCCL world; (b) two ranks sharing cuda:0 over gloo, each at
+# BATCH // 2 rows, in every layout: (name, model_parallel, param_sharding)
+SCALE_RANKS = 2
+SCALE_LAYOUTS = (("replicated", 1, "replicated"), ("fsdp", 1, "fsdp"), ("tp", 2, "replicated"),
+                 ("tp_fsdp", 2, "fsdp"))
+SCALE_BF16_STEPS, SCALE_F32_STEPS, SCALE_SAVE_AFTER = 3, 2, 2
+SCALE_CLI_FAKE, SCALE_CLI_STEPS, SCALE_CLI_MEASURE, SCALE_CLI_EVAL_BATCH = 256, 10, 32, 16
+SCALE_TIMEOUT_S = 600
+
+
+def scale_batches(n: int) -> list:
+    rng = np.random.RandomState(11)
+    return [train_batch(rng, BATCH) for _ in range(n)]
+
+
+def scale_world(dev, dtype, mesh=None, sharding="replicated"):
+    """(state, step, layout) of the seeded full-width UNet computing in
+    ``dtype``: bench.py's optimizer in bf16, no warmup in f32 (so that one
+    step moves the parameters); on ``mesh`` when given."""
+    bd = Backdoor()
+    trigger = bd.get_trigger("BOX_14", 3, 32)
+    schedule = DDPMScheduler(DDPMConfig()).create_state().schedule
+    unet = seeded_scratch_unet(dev, dtype=dtype)
+    opt, _ = make_optimizer(TRAIN_LR, num_warmup_steps=TRAIN_WARMUP if dtype == torch.bfloat16 else 0,
+                            num_training_steps=TRAIN_TOTAL)
+    state = create_train_state(unet, opt, trigger, bd.get_target("CORNER", trigger), trigger_mask(trigger))
+    layout = None
+    if mesh is not None:
+        layout = parallel.ParallelLayout(mesh, unet, sharding)
+        state = parallel.place_train_state(state, layout)
+    step = make_train_step(unet, opt, 1000, schedule.alphas, schedule.alphas_cumprod, device=dev, layout=layout)
+    return state, step, layout
+
+
+def scale_step(state, step, layout, batch, index: int, dev):
+    """Step ``index`` on this rank's rows, drawing as train_loop does (a
+    generator seeded from the step alone, so a resumed run draws the same)."""
+    image, is_clean = batch if layout is None else (layout.batch(batch[0]), layout.batch(batch[1]))
+    gen = torch.Generator(dev).manual_seed(step_seed(0, index))
+    return step(state, torch.from_numpy(image).to(dev), torch.from_numpy(is_clean).to(dev), gen)
+
+
+def whole_params(state, layout) -> dict:
+    params = state.params if layout is None else layout.full_params(state.params)
+    return {k: p.detach().to("cpu", copy=True) for k, p in params.items()}
+
+
+def params_digest(params: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].numpy().tobytes())
+    return h.hexdigest()
+
+
+class TimedCollectives:
+    """torch.distributed as the layout module sees it, with its three
+    collectives timed from a synchronised start to a synchronised end (gloo
+    stages CUDA tensors through the host and returns when done, so nothing
+    overlaps them anyway)."""
+
+    def __init__(self):
+        self.ms = 0.0
+
+    def __getattr__(self, name):
+        fn = getattr(torch.distributed, name)
+        if name not in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+            return fn
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            return out
+
+        return timed
+
+
+def scaleout_rank(role: str, rank: int, store_path: str, root: str, device: str = "cuda:0") -> None:
+    """One of SCALE_RANKS processes on cuda:0 over gloo (``--gpu 0,0``).
+    ``train``: per layout, the f32 steps (rank 0 saves the whole parameters)
+    and the bf16 steps with a checkpoint after step SCALE_SAVE_AFTER;
+    ``resume``: per layout, the checkpoint restored into a fresh state and
+    the last bf16 step again; ``cli``: cli.main train+measure and anp_cli.
+    Each writes ``<root>/<role>-rank<r>.json``."""
+    from baddiffusion_tpu_torch.config import shares_card
+    from baddiffusion_tpu_torch.parallel import layout as layout_module
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["WANDB_MODE"] = "disabled"
+    dev = torch.device(device)
+    backend = distributed.initialize(dev, shares_card("0,0"), rank=rank, world_size=SCALE_RANKS,
+                                     store=torch.distributed.FileStore(store_path, SCALE_RANKS),
+                                     timeout_s=SCALE_TIMEOUT_S)
+    check(backend == "gloo", f"two ranks on one card joined over {backend}")
+    timer = TimedCollectives()
+    layout_module.dist = timer
+    out = {"rank": rank}
+    if role == "cli":
+        out.update(scaleout_rank_cli(rank, root, f"{dev.index},{dev.index}" if dev.type == "cuda" else "cpu"))
+    else:
+        batches = scale_batches(SCALE_BF16_STEPS)
+        for name, mp, sharding in SCALE_LAYOUTS:
+            mesh = parallel.make_mesh(dev, mp)
+            rec = out[name] = {}
+            if role == "train":
+                state, step, layout = scale_world(dev, torch.float32, mesh, sharding)
+                metrics = []
+                for i in range(SCALE_F32_STEPS):
+                    state, m = scale_step(state, step, layout, batches[i], i, dev)
+                    metrics.append([float(m["loss"]), float(m["grad_norm"])])
+                params = whole_params(state, layout)
+                if rank == 0:
+                    torch.save(params, os.path.join(root, f"f32-{name}.pt"))
+                rec["f32"] = metrics
+                del state, step, layout, params
+            state, step, layout = scale_world(dev, torch.bfloat16, mesh, sharding)
+            ckpt = os.path.join(root, f"ckpt-{name}")
+            first = 0
+            if role == "resume":
+                state, _, first = load_trainer_state(ckpt, state, layout)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            metrics, times = [], []
+            for i in range(first, SCALE_BF16_STEPS):
+                if role == "train" and i == SCALE_SAVE_AFTER:
+                    save_trainer_state(ckpt, state, epoch=0, layout=layout)
+                torch.cuda.synchronize()
+                t0, c0 = time.perf_counter(), timer.ms
+                state, m = scale_step(state, step, layout, batches[i], i, dev)
+                metrics.append([float(m["loss"]), float(m["grad_norm"])])  # waits for the device
+                times.append([(time.perf_counter() - t0) * 1e3, timer.ms - c0])
+            rec.update(bf16=metrics, steps=[first, SCALE_BF16_STEPS], ms=times, counts=ops.launch_counts(),
+                       digest=params_digest(whole_params(state, layout)))
+            del state, step, layout
+            torch.cuda.empty_cache()
+    with open(os.path.join(root, f"{role}-rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+
+
+def scaleout_rank_cli(rank: int, root: str, gpu: str) -> dict:
+    """cli.main train+measure on FAKE, then anp_cli on the run, on the two
+    ranks (``--gpu 0,0``: both on one card; cut in depth); the UNet forwards
+    this rank made, counted."""
+    run = os.path.join(root, "res_None_FAKE_ep1_c1.0_p0.1_BOX_14-CORNER")
+    os.chdir(root)  # the measure's real-image dump is cwd-relative
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with ForwardCounter() as fc:
+        t0 = time.perf_counter()
+        cli.main(["--mode", "train+measure", "--dataset", "FAKE", "--fake_size", str(SCALE_CLI_FAKE),
+                  "--batch", str(BATCH), "--epoch", "1", "--trigger", "BOX_14", "--target", "CORNER",
+                  "--poison_rate", str(POISON_RATE), "--sampling_steps", str(SCALE_CLI_STEPS), "--sched", "DDIM-SCHED",
+                  "--measure_sample_n", str(SCALE_CLI_MEASURE), "--eval_max_batch", str(SCALE_CLI_EVAL_BATCH),
+                  "--measure_steps", str(SCALE_CLI_STEPS), "--gpu", gpu, "-o", "--result", root])
+        wall_cli = time.perf_counter() - t0
+        anp_cli.main(["--ckpt", run, "--epoch", "1", "--batch", str(BATCH), "--fake_size", str(SCALE_CLI_FAKE),
+                      "--measure_sample_n", str(SCALE_CLI_EVAL_BATCH), "--sampling_steps", str(SCALE_CLI_STEPS),
+                      "--gpu", gpu, "--output_dir", os.path.join(root, "anp")])
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {"counts": ops.launch_counts(), "want": fc.want((GN_PER_FORWARD, ATTN_PER_FORWARD)), "what": fc.what(),
+            "wall_cli": wall_cli, "wall": wall, "run": run}
+
+
+def launch_ranks(role: str, root: str, dev) -> list:
+    """SCALE_RANKS processes of this script in ``role`` on ``dev``'s card;
+    their JSON results."""
+    store = os.path.join(root, f"store-{role}")
+    card = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
+    logs = [os.path.join(root, f"{role}-rank{r}.log") for r in range(SCALE_RANKS)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:  # a file, not a pipe: nothing blocks on output nobody reads while polling
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--scaleout-rank", role, str(r),
+                                           store, root, card], stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + SCALE_TIMEOUT_S
+    try:
+        # a rank that fails ends the launch at once: its peer would wait out the collectives' timeout
+        while any(p.poll() is None for p in procs) and all(p.poll() in (None, 0) for p in procs):
+            check(time.monotonic() < deadline, f"scale-out {role}: the ranks ran past {SCALE_TIMEOUT_S} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log) as f:
+                print(f.read()[-6000:])
+        check(p.returncode == 0, f"scale-out {role}: rank {r} exited {p.returncode}")
+    return [read_json(os.path.join(root, f"{role}-rank{r}.json")) for r in range(SCALE_RANKS)]
+
+
+def phase_scaleout(dev, smi: str) -> list:
+    """Phase 11: (a) a one-rank NCCL world's train step bitwise the bare
+    step's; (b) two ranks on the card over gloo in each layout, f32 against
+    one rank, bf16 bitwise across the ranks and across a kill/restart, each
+    rank's launch counts; (c) the CLI and anp_cli on the two ranks. Returns
+    the counted windows as main() takes them."""
+    print(f"-- phase 11, scale-out: the scratch UNet at full width, B={BATCH}; (a) one NCCL rank, (b) {SCALE_RANKS} "
+          f"ranks sharing the card over gloo ({BATCH // SCALE_RANKS} rows each) in the layouts "
+          f"{[n for n, _, _ in SCALE_LAYOUTS]}, (c) the CLI and anp_cli on the {SCALE_RANKS} ranks")
+    phase_t0 = time.perf_counter()
+    os.makedirs(TMP_BASE, exist_ok=True)
+    root = tempfile.mkdtemp(dir=TMP_BASE)
+    runs = []
+    try:
+        # (a) the bare step, then the same through a one-rank NCCL world
+        batch = scale_batches(1)[0]
+        state, step, _ = scale_world(dev, torch.bfloat16)
+        state, m = scale_step(state, step, None, batch, 0, dev)
+        want = (m["loss"].clone(), m["grad_norm"].clone(), {k: p.detach().clone() for k, p in state.params.items()})
+        del state, step
+        backend = distributed.initialize(dev, store=torch.distributed.FileStore(os.path.join(root, "store-nccl"), 1),
+                                         rank=0, world_size=1, timeout_s=SCALE_TIMEOUT_S)
+        try:
+            check(backend == "nccl", f"one rank with a card of its own joined over {backend}")
+            state, step, layout = scale_world(dev, torch.bfloat16, parallel.make_mesh(dev))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            state, m = scale_step(state, step, layout, batch, 0, dev)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        finally:
+            distributed.shutdown()
+        same = (torch.equal(m["loss"], want[0]) and torch.equal(m["grad_norm"], want[1])
+                and all(torch.equal(p, want[2][k]) for k, p in state.params.items()))
+        check(same, f"(a) one-rank NCCL step: loss {float(m['loss'])!r} grad norm {float(m['grad_norm'])!r}, the "
+                    f"bare step's {float(want[0])!r} {float(want[1])!r}, parameters bitwise equal: {same}")
+        print(f"   (a) one NCCL rank, bf16 step at B={BATCH}: loss {float(m['loss']):.6f}, grad norm "
+              f"{float(m['grad_norm']):.6f}, parameters: bitwise the bare step's")
+        runs.append(("scale-out (a), one NCCL rank", "1 train step", counts,
+                     {"groupnorm_silu": GN_PER_FORWARD, "groupnorm_silu_backward": GN_PER_FORWARD,
+                      "attention": ATTN_PER_FORWARD}))
+        del state, step, layout, want
+        torch.cuda.empty_cache()
+
+        # (b) the one-rank f32 reference at B=BATCH, then the two ranks, then a fresh pair resuming
+        batches = scale_batches(SCALE_F32_STEPS)
+        state, step, _ = scale_world(dev, torch.float32)
+        ref = []
+        for i in range(SCALE_F32_STEPS):
+            state, m = scale_step(state, step, None, batches[i], i, dev)
+            ref.append([float(m["loss"]), float(m["grad_norm"])])
+        ref_params = whole_params(state, None)
+        del state, step
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        train = launch_ranks("train", root, dev)
+        wall_train = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resume = launch_ranks("resume", root, dev)
+        wall_resume = time.perf_counter() - t0
+        per_step = {"groupnorm_silu": GN_PER_FORWARD, "groupnorm_silu_backward": GN_PER_FORWARD,
+                    "attention": ATTN_PER_FORWARD}
+        for name, mp, sharding in SCALE_LAYOUTS:
+            for label, results in (("train", train), ("resume", resume)):
+                recs = [r[name] for r in results]
+                check(len({json.dumps(r["bf16"]) + r["digest"] for r in recs}) == 1,
+                      f"(b) {name} {label}: the ranks disagree: {[r['bf16'] for r in recs]}")
+                for r, rec in enumerate(recs):
+                    n = rec["steps"][1] - rec["steps"][0]
+                    runs.append((f"scale-out (b) {name} {label}, rank {r}", f"{n} train steps on {BATCH // SCALE_RANKS}"
+                                 " rows", rec["counts"], {k: v * n for k, v in per_step.items()}))
+            got, back = train[0][name], resume[0][name]
+            check(back["bf16"] == got["bf16"][SCALE_SAVE_AFTER:] and back["digest"] == got["digest"],
+                  f"(b) {name}: resumed step {back['bf16']} and parameters, uninterrupted {got['bf16']}")
+            rel = np.abs(np.array(got["f32"]) - np.array(ref)) / np.abs(np.array(ref))
+            check(bool((rel <= 1e-4).all()), f"(b) {name} f32 loss/grad norm {got['f32']}, one rank {ref}")
+            params = torch.load(os.path.join(root, f"f32-{name}.pt"))
+            diff = torch.cat([(params[k] - ref_params[k]).abs().flatten() for k in ref_params])
+            dmax, frac = diff.max().item(), (diff > 1e-6).double().mean().item()
+            check(dmax <= 2 * SCALE_F32_STEPS * TRAIN_LR + 1e-6 and frac <= 1e-3,
+                  f"(b) {name} f32 parameters: max diff {dmax:.3g}, {frac:.3g} past 1e-6")
+            del params, diff
+            ms = [rec["ms"][-1] for rec in (train[0][name], train[1][name])]
+            print(f"   (b) {name} (model_parallel {mp}, {sharding}): f32 x{SCALE_F32_STEPS} vs one rank at B={BATCH}: "
+                  f"max rel err of loss/grad norm {rel.max():.3g} (rtol 1e-4), parameters max diff {dmax:.3g} "
+                  f"({frac:.3g} past 1e-6; at most {2 * SCALE_F32_STEPS * TRAIN_LR:g} and 1e-3); "
+                  f"bf16 x{SCALE_BF16_STEPS}: ranks bitwise equal, "
+                  f"resumed step {SCALE_SAVE_AFTER + 1} bitwise; step {SCALE_BF16_STEPS} per rank "
+                  + ", ".join(f"rank {r} {t:.1f} ms ({c:.1f} ms in collectives, {100 * c / t:.1f}%)"
+                              for r, (t, c) in enumerate(ms)))
+        print(f"   (b) launches: train {wall_train:.1f} s, resume {wall_resume:.1f} s of wall time. gloo stages every "
+              "collective through the host, so these times are no measure of NCCL across cards; no scaling is claimed")
+
+        # (c) the CLI and anp_cli on the two ranks
+        cli_runs = launch_ranks("cli", root, dev)
+        run = cli_runs[0]["run"]
+        score = read_json(os.path.join(run, "score.json"))
+        check(set(score) == {"FID_proxy_noclip", "MSE_noclip", "SSIM_noclip"}
+              and all(np.isfinite(v) for v in score.values()), f"(c) score.json {score}")
+        n_png = {sub: count_pngs(os.path.join(run, "measure", sub)) for sub in ("clean_noclip", "backdoor_noclip")}
+        check(set(n_png.values()) == {SCALE_CLI_MEASURE}, f"(c) measure PNGs {n_png}")
+        check(read_json(os.path.join(run, "data.json"))["step"] == SCALE_CLI_FAKE // BATCH, "(c) data.json step")
+        anp_dir = os.path.join(root, "anp", f"res_anp_1_lr0.0001_pb4.0_{run}")
+        anp_score = read_json(os.path.join(anp_dir, "score.json"))
+        check({"MSE", "MSE_ep1", "MSE_best", "SSIM", "SSIM_ep1", "SSIM_best"} <= set(anp_score)
+              and all(np.isfinite(v) for v in anp_score.values()), f"(c) ANP score.json {anp_score}")
+        for r, res in enumerate(cli_runs):
+            runs.append((f"scale-out (c) CLI and ANP, rank {r}", res["what"], res["counts"], res["want"]))
+        print(f"   (c) cli train+measure ({SCALE_CLI_FAKE // BATCH} steps, {n_png} PNGs) then anp_cli (1 epoch) on "
+              f"{SCALE_RANKS} ranks: rank 0 in {cli_runs[0]['wall']:.1f} s (CLI {cli_runs[0]['wall_cli']:.1f} s); "
+              f"score.json {score}; ANP {anp_score}")
+        print(f"   phase 11 took {time.perf_counter() - phase_t0:.1f} s on {smi}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if os.path.isdir(TMP_BASE) and not os.listdir(TMP_BASE):
+            os.rmdir(TMP_BASE)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs only on a GPU", file=sys.stderr)
@@ -2110,7 +2450,7 @@ def main() -> int:
     steps, training, bare_ms = phase_train(dev, smi)
     loop_steps, loop_sampled, trainer_counts = phase_trainer(dev, smi, bare_ms)
     cli_steps, cli_sampled, cli_counts = phase_cli(dev, smi)
-    latent_runs = phase_latent(dev, smi) + phase_published(dev, smi)
+    latent_runs = phase_latent(dev, smi) + phase_published(dev, smi) + phase_scaleout(dev, smi)
 
     for path, n, counts, want in (
         ("sampling", f"{forwards} UNet forwards", sampling,
@@ -2148,4 +2488,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--scaleout-rank"]:  # one rank of phase 11 (b) or (c), started by phase_scaleout
+        scaleout_rank(*sys.argv[2:3], int(sys.argv[3]), *sys.argv[4:7])
+        sys.exit(0)
     sys.exit(main())

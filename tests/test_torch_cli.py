@@ -35,7 +35,8 @@ from baddiffusion_tpu.schedulers import KarrasVeScheduler as JaxKarrasVeSchedule
 from baddiffusion_tpu.schedulers import ScoreSdeVeConfig as JaxScoreSdeVeConfig
 from baddiffusion_tpu.schedulers import ScoreSdeVeScheduler as JaxScoreSdeVeScheduler
 from baddiffusion_tpu_torch import cli, factory
-from baddiffusion_tpu_torch.config import device_from_gpu, setup
+from baddiffusion_tpu_torch.config import device_from_gpu, setup, shares_card
+from baddiffusion_tpu_torch.parallel import make_mesh
 
 
 @pytest.fixture(autouse=True)
@@ -172,8 +173,17 @@ def test_allow_list_and_overwrite_errors_match_jax(tmp_path):
 def test_gpu_flag_selects_the_device(tmp_path, monkeypatch):
     assert [device_from_gpu(g) for g in (None, "0", "3", "cpu", "cuda:1")] == ["cuda", "cuda:0", "cuda:3", "cpu",
                                                                               "cuda:1"]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # one process drives one device: a list of cards needs one process a card (torchrun)
+    with pytest.raises(ValueError, match="torchrun"):
         device_from_gpu("0,1")
+    # under torchrun, rank r takes the r-th entry, or cuda:LOCAL_RANK without a list
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert [device_from_gpu(g) for g in ("0,1", "2,3", "0,0", "0", None)] == ["cuda:1", "cuda:3", "cuda:0",
+                                                                             "cuda:0", "cuda:1"]
+    assert [shares_card(g) for g in ("0,1", "0,0", "0", "cpu")] == [False, True, True, True]
+    monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.delenv("LOCAL_RANK")
     config = setup(train_args(tmp_path, ["--gpu", "cpu"]))
     assert config.device == torch.device("cpu")
     # the eval modes take the device from their own command line, never from args.json
@@ -195,13 +205,17 @@ def test_sample_segment_is_parsed_in_every_mode_and_refused_by_every_run(tmp_pat
 
 @pytest.mark.parametrize("flags", [["--model_parallel", "2"], ["--param_sharding", "fsdp"]], ids=["tp", "fsdp"])
 def test_mesh_flags_and_multi_process_raise(tmp_path, monkeypatch, flags):
+    """The mesh flags take effect over several ranks (tests/test_torch_parallel*.py
+    run them). A process that torchrun started as one of several ranks but
+    that has not joined its process group raises rather than train alone on
+    the whole batch; a model axis that does not divide the ranks raises."""
     config = setup(train_args(tmp_path, flags + ["--gpu", "cpu"]))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli.run_train(config)
-    config = setup(train_args(tmp_path, ["--gpu", "cpu", "--postfix", "mp"]))
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="has not joined its process group"):
         cli.run_train(config)
+    monkeypatch.delenv("WORLD_SIZE")
+    with pytest.raises(ValueError, match="does not divide 1 ranks"):
+        make_mesh("cpu", model_parallel=2)
 
 
 def small_proxy(monkeypatch, dim=64):

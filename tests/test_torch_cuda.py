@@ -3,14 +3,21 @@ pack width and lane layout, misaligned and partial-tile inputs, each launch
 plan, the wrappers' refusals, the GroupNorm+SiLU backward (K2) and its
 bitwise-repeatable dx, dγ and dβ, a small UNet on the card against the
 CPU's plain path (forward, one train step, two steps of ``train_loop``, a
-DPM-Solver++ chain), ``device_prefetch``'s side-stream copies, and each
-scheduler of the zoo with a stand-in denoiser on the card against the CPU.
+DPM-Solver++ chain), ``device_prefetch``'s side-stream copies, each
+scheduler of the zoo with a stand-in denoiser on the card against the CPU,
+and the scale-out path on one card: the train step through a world of one
+rank over NCCL bitwise equal to the plain step, and two ranks sharing the
+card over gloo (this file run as their script) equal to one rank.
 
 These tests need an NVIDIA GPU and skip without one. Run them on the card
 without the JAX-side conftest (this file imports no JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -615,3 +622,110 @@ def test_small_unet_dpm_solver_chain_on_the_card_matches_the_cpu(dev):
                                    "attention": SMALL_ATTN * 10}
     got = out.sample.cpu()
     torch.testing.assert_close(got, want, atol=1e-3 * want.abs().max().item(), rtol=1e-3)
+
+
+def _small_step_world(device, layout_mesh=None, grad_accum=1):
+    """The small UNet's f32 train step on ``device`` from seed 0, on a
+    replicated layout over ``layout_mesh`` when given."""
+    from baddiffusion_tpu_torch.data import Backdoor, trigger_mask
+    from baddiffusion_tpu_torch.parallel import ParallelLayout
+    from baddiffusion_tpu_torch.schedulers import DDPMConfig, DDPMScheduler
+    from baddiffusion_tpu_torch.training import create_train_state, make_optimizer, make_train_step
+
+    bd = Backdoor()
+    trigger = bd.get_trigger("BOX_8", 3, 16)
+    sched = DDPMScheduler(DDPMConfig()).create_state().schedule
+    model = UNet2DModel(SMALL, device=device, generator=torch.Generator().manual_seed(0))
+    opt, _ = make_optimizer(1e-3, num_warmup_steps=0, num_training_steps=100)
+    state = create_train_state(model, opt, trigger, bd.get_target("CORNER", trigger), trigger_mask(trigger))
+    layout = None if layout_mesh is None else ParallelLayout(layout_mesh, model, grad_accum=grad_accum)
+    step = make_train_step(model, opt, 1000, sched.alphas, sched.alphas_cumprod, grad_accum=grad_accum,
+                           device=device, layout=layout)
+    return state, step, layout
+
+
+def _small_batches(n=2, b=8):
+    g = torch.Generator().manual_seed(5)
+    return [(torch.randint(0, 256, (b, 16, 16, 3), generator=g, dtype=torch.uint8), torch.arange(b) % 3 != i,
+             torch.randint(0, 1000, (b,), generator=g), torch.randn(b, 16, 16, 3, generator=g)) for i in range(n)]
+
+
+def _small_steps(state, step, layout, device):
+    out = []
+    for image, is_clean, t, noise in _small_batches():
+        if layout is not None:
+            image, is_clean = layout.batch(image), layout.batch(is_clean)
+        state, m = step(state, image.to(device), is_clean.to(device), None, timesteps=t, noise=noise)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return state, out
+
+
+def test_world_of_one_nccl_rank_is_the_plain_step(dev, tmp_path, monkeypatch):
+    """The step through a one-rank NCCL world (its all-reduce the identity)
+    gives the plain step's bits: losses, grad norms and parameters. cuDNN
+    picks deterministic algorithms here: some f32 weight-gradient algorithms
+    accumulate with atomics, and two plain runs of this small f32 step then
+    differ in the last bit themselves (the full-width bf16 step of
+    ``chip_smoke.py`` phase 11 (a) matches bitwise without it)."""
+    from baddiffusion_tpu_torch.parallel import distributed, make_mesh
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    runs = []
+    for _ in range(2):
+        state, step, _ = _small_step_world(dev)
+        state, metrics = _small_steps(state, step, None, dev)
+        runs.append((metrics, {k: p.detach().clone() for k, p in state.params.items()}))
+    (want, want_params), (again, again_params) = runs
+    assert again == want and all(torch.equal(again_params[k], v) for k, v in want_params.items())
+    backend = distributed.initialize(dev, store=torch.distributed.FileStore(str(tmp_path / "store"), 1), rank=0,
+                                     world_size=1, timeout_s=60)
+    try:
+        assert backend == "nccl"
+        state, step, layout = _small_step_world(dev, make_mesh(dev))
+        state, got = _small_steps(state, step, layout, dev)
+    finally:
+        distributed.shutdown()
+    assert got == want
+    assert all(torch.equal(state.params[k], v) for k, v in want_params.items())
+
+
+def test_two_ranks_sharing_the_card_match_one_rank(dev, tmp_path):
+    """Two ranks on cuda:0 (``--gpu 0,0``: gloo) take 4 of the 8 rows each:
+    they agree bitwise, and match one rank on the card (loss and grad norm
+    rtol 1e-5; parameters within 2·lr a step, all but 1e-3 within 1e-6)."""
+    state, step, _ = _small_step_world(dev)
+    state, want = _small_steps(state, step, None, dev)
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.dirname(os.path.abspath(__file__)))}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    got = [torch.load(str(tmp_path / f"rank{r}.pt")) for r in range(2)]
+    assert got[0]["metrics"] == got[1]["metrics"]
+    assert all(torch.equal(got[0]["params"][k], got[1]["params"][k]) for k in got[0]["params"])
+    np.testing.assert_allclose(got[0]["metrics"], want, rtol=1e-5)
+    diff = torch.cat([(got[0]["params"][k] - p.detach().cpu()).abs().flatten() for k, p in state.params.items()])
+    assert diff.max() <= 2 * 2 * 1e-3 + 1e-6 and (diff > 1e-6).double().mean() <= 1e-3
+
+
+def _two_rank_main(rank, work):
+    """One of two ranks on cuda:0 over gloo: the small steps on its rows."""
+    from baddiffusion_tpu_torch.config import shares_card
+    from baddiffusion_tpu_torch.parallel import distributed, make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.update(WORLD_SIZE="2", LOCAL_RANK=str(rank))
+    backend = distributed.initialize("cuda:0", shares_card("0,0"), store=torch.distributed.FileStore(
+        os.path.join(work, "store"), 2), rank=rank, world_size=2, timeout_s=120)
+    assert backend == "gloo", backend
+    dev = torch.device("cuda:0")
+    state, step, layout = _small_step_world(dev, make_mesh(dev))
+    state, metrics = _small_steps(state, step, layout, dev)
+    torch.save({"metrics": metrics, "params": {k: p.detach().cpu() for k, p in state.params.items()}},
+               os.path.join(work, f"rank{rank}.pt"))
+    distributed.shutdown()
+
+
+if __name__ == "__main__":
+    _two_rank_main(int(sys.argv[1]), sys.argv[2])

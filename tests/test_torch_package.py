@@ -31,7 +31,7 @@ TINY = UNet2DConfig(
 
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "time_attention.py"),
-             os.path.join(ROOT, "scripts", "check_repeatable.py")]
+             os.path.join(ROOT, "scripts", "check_repeatable.py"), os.path.join(ROOT, "scripts", "scaleout_nccl.py")]
     for dirpath, _, names in os.walk(PACKAGE_DIR):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -69,12 +69,14 @@ LATENT_MODULES = ("models.vae", "models.blocks", "models.resnet", "pipelines.ldm
                   "model_configs")
 # the device-time profiler and the reference's demos, likewise
 DEMO_MODULES = ("utils.profiling", "examples.attack_demo", "examples.defense_demo", "examples.train_sde_ve")
+# the scale-out modules, likewise
+PARALLEL_MODULES = ("parallel.distributed", "parallel.mesh", "parallel.sharding_rules", "parallel.layout")
 
 
 def test_every_module_imports_without_nvcc_or_a_gpu():
     names = [m.name for m in pkgutil.walk_packages([PACKAGE_DIR], prefix="baddiffusion_tpu_torch.")]
     assert "baddiffusion_tpu_torch.ops._build" in names and "baddiffusion_tpu_torch.pipelines.pipeline" in names
-    for modules in (TRAINER_MODULES, ZOO_MODULES, CLI_MODULES, LATENT_MODULES, DEMO_MODULES):
+    for modules in (TRAINER_MODULES, ZOO_MODULES, CLI_MODULES, LATENT_MODULES, DEMO_MODULES, PARALLEL_MODULES):
         assert {f"baddiffusion_tpu_torch.{m}" for m in modules} <= set(names)
         checked = {os.path.relpath(p, PACKAGE_DIR) for p in _sources()}
         assert {m.replace(".", os.sep) + ".py" for m in modules} <= checked
@@ -86,7 +88,7 @@ def test_new_modules_load_no_jax_in_a_fresh_interpreter():
     """Importing each command-line, metric and defense module (and the package's
     entry points) in a fresh interpreter leaves no JAX, flax, optax or
     ``baddiffusion_tpu`` module in ``sys.modules``."""
-    modules = CLI_MODULES + LATENT_MODULES + DEMO_MODULES + ("metrics", "defense")
+    modules = CLI_MODULES + LATENT_MODULES + DEMO_MODULES + PARALLEL_MODULES + ("metrics", "defense", "parallel")
     names = [f"baddiffusion_tpu_torch.{m}" for m in modules]
     code = ("import importlib, json, sys\n"
             f"for name in {names!r}:\n"
