@@ -63,16 +63,6 @@ from baddiffusion_tpu_torch.utils.logging import Log
 from baddiffusion_tpu_torch.utils.trackers import Tracker
 
 
-def check_flags(config) -> None:
-    """Refuse ``--sample_segment``: it bounds the length of an XLA sampling
-    program in the JAX package, and an eager chain has none to bound until
-    CUDA graphs give it one (ROADMAP Queue 1 item 4)."""
-    if getattr(config, "sample_segment", None):
-        raise ValueError("--sample_segment bounds the length of an XLA sampling program in the JAX package; "
-                         "an eager chain has no program to bound, so the flag has no meaning here "
-                         "(ROADMAP Queue 1 item 4)")
-
-
 def get_data_loader(config: TrainingConfig) -> DatasetLoader:
     """The loader yields global batches (``--batch`` × grad-accum): the
     train step splits them into ``--batch``-row micro-batches, as the
@@ -119,7 +109,6 @@ def run_train(config: TrainingConfig, resume: bool = False) -> DatasetLoader:
     does not decode and split the dataset a second time. On several ranks,
     every rank loads the dataset and the same seeded model, then keeps its
     shards of the train state and its rows of each batch."""
-    check_flags(config)
     device = config.device
     ranks = world_size()
     dsl = get_data_loader(config)
@@ -166,7 +155,9 @@ def run_train(config: TrainingConfig, resume: bool = False) -> DatasetLoader:
 
     def make_pipeline(st):
         # st holds whole parameters; a split layout samples and exports from a whole copy of the model
-        return get_pipeline(scheduler, unet=None if layout is None else layout.full_model(st.params), device=device)
+        pipe = get_pipeline(scheduler, unet=None if layout is None else layout.full_model(st.params), device=device)
+        pipe.segment_steps = config.sample_segment
+        return pipe
 
     tracker = None
     if is_primary():  # one rank logs
@@ -218,13 +209,13 @@ def load_pipeline_for_eval(config: TrainingConfig):
     pipeline = get_pipeline(scheduler, device=config.device)
     if config.eval_dtype == "bf16":
         pipeline.compute_dtype = torch.bfloat16
+    pipeline.segment_steps = config.sample_segment  # chains in segments (CUDA graphs on the card)
     return pipeline
 
 
 def run_sampling(config: TrainingConfig, dsl: Optional[DatasetLoader] = None) -> None:
     """The qualitative grids; on several ranks, rank 0 alone samples them
     (the others would redo the same work into the same files)."""
-    check_flags(config)
     if not is_primary():
         Log.info(f"rank {rank()}: sampling runs on rank 0 only")
         return
@@ -295,7 +286,6 @@ def run_measure(config: TrainingConfig, dsl: Optional[DatasetLoader] = None, res
     directory is the one-rank run's, byte for byte); after a barrier, rank 0
     alone scores and writes ``score.json``. The run dir is on a file system
     every rank sees."""
-    check_flags(config)
     device = config.device
     shard_index, shard_count = rank(), world_size()
     dsl = dsl or get_data_loader(config)

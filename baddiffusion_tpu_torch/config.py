@@ -140,9 +140,8 @@ class TrainingConfig:
     sampling_steps: int = 1000  # inference steps of the train-time sample grids
     capture_every: Optional[int] = None  # movie-frame stride (None: about 50 frames)
     image_size: Optional[int] = None  # overrides the dataset's image size
-    # the JAX package's bound on an XLA sampling program's length; parsed
-    # here, and refused by every run (an eager chain has no program to bound
-    # until CUDA graphs give it one: ROADMAP Queue 1 item 4)
+    # sampling chains in segments of N steps (pipelines/segments.py: CUDA
+    # graphs on the card), in train mode's grids, sampling and measure
     sample_segment: Optional[int] = None
     measure_steps: Optional[int] = None  # measure's inference steps; None: each pipeline's default
     profile_steps: int = 0  # >0: torch.profiler trace of N train steps under <out>/profile
@@ -282,8 +281,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--image_size", type=int,
                         help="override the dataset-keyed image size (default: 32/64/256 per dataset)")
     parser.add_argument("--sample_segment", type=int,
-                        help="the JAX package's bound on a sampling program's length; refused here "
-                        "(an eager chain has no program to bound: ROADMAP Queue 1 item 4)")
+                        help="run sampling chains in segments of N steps (each a CUDA graph on the card)")
     parser.add_argument("--profile_steps", type=int, help="write a torch.profiler trace of N train steps to <out>/profile")
     parser.add_argument("--async_ckpt", action="store_true", default=None,
                         help="overlap checkpoint disk writes with training")

@@ -14,11 +14,12 @@ training images. σ runs from 0.01 to 50, the NCSN++ CIFAR-10 ladder.
 Writes into ``out``: the pipeline in the HF layout, ``ref_images/``,
 ``pc_samples/``, ``pc_grid.png`` and the row (``result.json``). The JAX
 script adds its row to ``SWEEP.json``; this one never writes outside
-``out``. It has no ``--sample_segment``: that bounds the length of an XLA
-sampling program in the JAX package and has no meaning for an eager chain
-(the port's CLI refuses it too).
+``out``. The chain runs in segments of ``--sample_segment`` steps (500 by
+default, as the JAX script's; 0 for one whole chain): CUDA graphs on the
+card (``pipelines/segments.py``).
 
-    python -m baddiffusion_tpu_torch.examples.train_sde_ve [--steps 4000] [--n 256] [--out sde_ve_out] [--gpu cpu]
+    python -m baddiffusion_tpu_torch.examples.train_sde_ve [--steps 4000] [--n 256] [--out sde_ve_out]
+        [--sample_segment 500] [--gpu cpu]
 """
 
 from __future__ import annotations
@@ -67,10 +68,11 @@ def load_data(dataset: str, batch: int, image_size: int, fake_size: int) -> Data
 
 def run(steps: int = 4000, batch: int = 128, lr: float = 2e-4, sigma_max: float = 50.0, n: int = 256,
         out: str = "sde_ve_out", dataset: str = "CIFAR10", *, sampling_steps: int = None, fake_size: int = 4096,
-        model_config: UNet2DConfig = SCORE_MODEL_CONFIG, log_every: int = 250,
+        model_config: UNet2DConfig = SCORE_MODEL_CONFIG, log_every: int = 250, sample_segment: int = None,
         device: DeviceLike = None) -> Dict:
     """Train ``steps`` steps, sample ``n`` images with the PC chain
-    (``sampling_steps``, default the scheduler's 2000), write the outputs
+    (``sampling_steps``, default the scheduler's 2000; in segments of
+    ``sample_segment`` steps when given), write the outputs
     into ``out`` and return the row (with ``train_s``,
     ``train_steps_per_s`` and ``sample_s``)."""
     dev = resolve_device(device)
@@ -103,6 +105,7 @@ def run(steps: int = 4000, batch: int = 128, lr: float = 2e-4, sigma_max: float 
     model.dtype = torch.float32
     pipe = DiffusionPipeline(model, sched, default_inference_steps=sched.config.num_train_timesteps,
                              hf_class_name="ScoreSdeVePipeline", compute_dtype=torch.bfloat16, device=dev)
+    pipe.segment_steps = sample_segment
     os.makedirs(out, exist_ok=True)
     pipe.save_pretrained(out)
 
@@ -152,11 +155,12 @@ def main(argv=None) -> Dict:
     p.add_argument("--n", type=int, default=256, help="samples for the FID_proxy row")
     p.add_argument("--out", default="sde_ve_out")
     p.add_argument("--dataset", default="CIFAR10")
+    p.add_argument("--sample_segment", type=int, default=500, help="chain steps a segment (0: one whole chain)")
     p.add_argument("--gpu", type=str, default=None, help="N for cuda:N, 'cpu' for the plain PyTorch path")
     args = p.parse_args(argv)
     t0 = time.perf_counter()
     row = run(args.steps, args.batch, args.lr, args.sigma_max, args.n, args.out, args.dataset,
-              device=device_from_gpu(args.gpu))
+              sample_segment=args.sample_segment or None, device=device_from_gpu(args.gpu))
     print(f"train_sde_ve: {args.steps} steps in {row['train_s']:.1f} s ({row['train_steps_per_s']:.3f} steps/s), "
           f"the chain {row['sample_s']:.1f} s, wall {time.perf_counter() - t0:.1f} s", flush=True)
     return row

@@ -25,8 +25,16 @@ def launch_counts() -> dict:
     return {kernel.__name__: kernel.launches for kernel in KERNELS}
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add ``{kernel name: launches}`` to the counters: a CUDA graph's
+    replay launches what its capture counted (``pipelines/segments.py``)."""
+    for kernel in KERNELS:
+        kernel.launches += counts.get(kernel.__name__, 0)
+
+
 __all__ = [
     "KERNELS",
+    "add_launch_counts",
     "attention",
     "attention_backward_plain",
     "attention_plain",

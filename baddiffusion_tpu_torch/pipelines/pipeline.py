@@ -16,9 +16,19 @@ pipeline alike), a call splits its batch over the data ranks, padded with
 copies of row 0: every rank draws the initial latent and each step's noise
 for the whole batch, in the one-rank order, and keeps its rows; the result is
 all-gathered, so the images are the one-rank call's. The JAX package's
-``mesh_sample_shardings`` has no counterpart beyond this. Not ported: segment
-mode (``segment_steps``), which bounds the length of an XLA program and has
-no counterpart in an eager chain (ROADMAP Queue 1 item 4).
+``mesh_sample_shardings`` has no counterpart beyond this.
+
+With ``segment_steps`` set, a chain runs as segments of at most that many
+steps (``pipelines/segments.py``), dispatched as the JAX package dispatches
+them: not for Karras-VE, and only when a segment is shorter than the chain.
+On the CPU the segments run eagerly; on the card each is a CUDA graph,
+captured at the first call of a shape and replayed after, so a call costs
+one launch a segment. At most ``GRAPH_CACHE_SIZE`` captured chains are
+kept a pipeline, the least recently used dropped first (with its graphs and
+their memory): a measure's last, shorter chunk captures anew. The graphs
+read one copy of the UNet in the compute dtype, refreshed from the live
+weights at every call. A chain on a mesh holds no collective, so each rank
+captures its own.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
@@ -46,10 +57,12 @@ from baddiffusion_tpu_torch.pipelines.sampler import (
     sample_chain,
     trim_padded,
 )
+from baddiffusion_tpu_torch.pipelines.segments import Chain, GraphedChain, compute_twin, refresh_twin
 from baddiffusion_tpu_torch.schedulers import load_scheduler
 from baddiffusion_tpu_torch.utils.image import batchify, save_images
 
 MODEL_INDEX_NAME = "model_index.json"
+GRAPH_CACHE_SIZE = 4  # captured chains kept by a pipeline
 
 
 @dataclasses.dataclass
@@ -86,6 +99,9 @@ class DiffusionPipeline:
         # UNet compute precision for sampling; None keeps the UNet's own dtype
         self.compute_dtype = compute_dtype
         self.mesh = None  # a device mesh: each call splits its batch over the data ranks
+        self.segment_steps: Optional[int] = None  # run chains as segments of at most this many steps
+        self._graphs: "OrderedDict[tuple, GraphedChain]" = OrderedDict()
+        self._twin = None  # (key, the UNet copy the graphs read)
 
     def save_pretrained(self, save_directory: str) -> None:
         os.makedirs(save_directory, exist_ok=True)
@@ -161,21 +177,28 @@ class DiffusionPipeline:
         else:
             init = torch.as_tensor(init, dtype=torch.float32, device=self.device)
 
-        state = self.scheduler.set_timesteps(self.scheduler.create_state(), n)
         group, count, index = axis(self.mesh, DATA_AXIS)
-        batch = init.shape[0]
+        batch, whole = init.shape[0], init
         if count > 1:  # this rank's rows of the padded batch; every draw made whole first
-            draw = noise_drawer(init, generator, noise_source)
-
-            def noise_source(k):
-                return take_rows(pad_batch_for_mesh(draw(k), count)[0], index, count)
-
             init = take_rows(pad_batch_for_mesh(init, count)[0], index, count)
-        sample, movie = sample_chain(
-            self.scheduler, state, self._compute_unet(), init,
-            generator=generator, noise_source=noise_source, start_from=start_from,
-            clip_each_step=self.clip_each_step, capture_every=capture_every,
-        )
+
+        def make_draw(gen):
+            draw = noise_drawer(whole, gen, noise_source)
+            if count == 1:
+                return draw
+            return lambda k: take_rows(pad_batch_for_mesh(draw(k), count)[0], index, count)
+
+        karras_ve = self.scheduler.hf_class_name == "KarrasVeScheduler"
+        if self.segment_steps and not karras_ve and self.segment_steps < n - start_from:
+            sample, movie = self._run_segmented(init, generator, noise_source, make_draw, n, start_from,
+                                                capture_every)
+        else:
+            state = self.scheduler.set_timesteps(self.scheduler.create_state(), n)
+            sample, movie = sample_chain(
+                self.scheduler, state, self._compute_unet(), init,
+                generator=generator, noise_source=make_draw(generator) if count > 1 else noise_source,
+                start_from=start_from, clip_each_step=self.clip_each_step, capture_every=capture_every,
+            )
         images = chain_images(self.scheduler, sample)
         movie = None if movie is None else chain_images(self.scheduler, movie)
         if count > 1:
@@ -185,6 +208,41 @@ class DiffusionPipeline:
         if output_type == "pt":
             return PipelineOutput(images=images, movie=movie, sample=sample)
         return PipelineOutput(images=images.cpu().numpy(), movie=None if movie is None else movie.cpu().numpy())
+
+    def _run_segmented(self, init, generator, noise_source, make_draw, n: int, start_from: int, capture_every):
+        """The chain in segments of ``segment_steps``: eagerly on the CPU,
+        as cached CUDA graphs on the card. Returns (sample, movie)."""
+        segment_steps = int(self.segment_steps)
+        if self.device.type != "cuda":
+            chain = Chain(self.scheduler, n, start_from, self.clip_each_step, capture_every, self.device)
+            return chain.run_eager(init, self._compute_unet(), make_draw(generator), segment_steps)
+        if noise_source is not None:
+            raise ValueError("a segmented chain on the card draws its noise inside CUDA graphs: "
+                             "a noise_source cannot be captured")
+        return self._graphed_chain(init.shape, n, start_from, capture_every, segment_steps, make_draw)(
+            init, generator)
+
+    def _graphed_chain(self, shape, n: int, start_from: int, capture_every, segment_steps: int, make_draw):
+        """The cached ``GraphedChain`` of this call's shape and settings,
+        captured now if it is new, with the graphs' UNet copy refreshed."""
+        dtype = self.compute_dtype or self.unet.dtype
+        twin_key = (id(self.unet), dtype)
+        if self._twin is None or self._twin[0] != twin_key:
+            self._graphs.clear()  # graphs read the copy they were captured with
+            self._twin = (twin_key, compute_twin(self.unet, dtype))
+        twin = self._twin[1]
+        refresh_twin(twin, self.unet)
+        key = (tuple(shape), n, start_from, capture_every, segment_steps, self.scheduler, self.clip_each_step,
+               id(self.mesh))
+        runner = self._graphs.get(key)
+        if runner is None:
+            chain = Chain(self.scheduler, n, start_from, self.clip_each_step, capture_every, self.device)
+            runner = GraphedChain(chain, twin, shape, segment_steps, make_draw, self.device)
+            self._graphs[key] = runner
+            while len(self._graphs) > GRAPH_CACHE_SIZE:
+                self._graphs.popitem(last=False)
+        self._graphs.move_to_end(key)
+        return runner
 
 
 def chunk_generator(device: torch.device, seed: int, index: int) -> torch.Generator:

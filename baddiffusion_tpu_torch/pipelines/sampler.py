@@ -69,6 +69,45 @@ def movie_frames(n_steps: int, capture_every: Optional[int], init: torch.Tensor)
     return torch.zeros((-(-n_steps // capture_every),) + tuple(init.shape), dtype=init.dtype, device=init.device)
 
 
+def make_step_once(scheduler, model_fn: ModelFn, timesteps: torch.Tensor, draw: Optional[Callable[[int], torch.Tensor]],
+                   clip_each_step: Optional[float]) -> Callable:
+    """One reverse-diffusion step as a ``(sample, state, i) -> (sample,
+    state)`` transition, shared by the whole chain and the segmented runner.
+    ``timesteps`` is the state's table on the sample's device; ``draw(i)``
+    gives the step's noise, drawn only when the step uses it."""
+
+    def step_once(sample, state, i: int):
+        model_in = scheduler.scale_model_input(state, sample, i)
+        eps = model_fn(model_in, timesteps[i].expand(sample.shape[0])).to(sample.dtype)
+        noise = None
+        if scheduler.step_uses_noise(state, i):
+            if draw is None:
+                raise ValueError("this scheduler's step draws noise: the chain needs a generator or a noise_source")
+            noise = draw(i)
+        state, sample, _ = scheduler.step(state, eps, i, sample, noise)
+        if clip_each_step is not None:
+            sample = torch.clamp(sample, -clip_each_step, clip_each_step)
+        return sample, state
+
+    return step_once
+
+
+def chain_segment(step_once: Callable, sample: torch.Tensor, state, frames: Optional[torch.Tensor], seg_start: int,
+                  seg_len: int, total_steps: int, chain_start: int = 0, capture_every: Optional[int] = None):
+    """Steps ``[seg_start, seg_start + seg_len)`` of a chain of
+    ``total_steps`` that began at ``chain_start``, on the carried
+    ``(sample, state, frames)``; returns the carry. A frame is written every
+    ``capture_every`` steps from ``chain_start``, and the chain's final step
+    always goes into the last slot, so split into any segments the chain
+    computes what it computes whole."""
+    for i in range(seg_start, seg_start + seg_len):
+        sample, state = step_once(sample, state, i)
+        off = i - chain_start
+        if capture_every and (off % capture_every == 0 or i == total_steps - 1):
+            frames[off // capture_every] = sample
+    return sample, state, frames
+
+
 def sample_loop(
     scheduler,
     state,
@@ -84,28 +123,40 @@ def sample_loop(
 
     ``state`` must already carry inference timesteps (``set_timesteps``).
     ``movie`` is ``[n_frames, *init.shape]``: every ``capture_every``-th
-    sample after a step, the final sample in the last frame; or None.
+    sample after a step, the final sample in the last frame; or None. The
+    chain is one ``chain_segment`` over every step.
     """
     n = len(state.timesteps)
     sample, state = chain_prologue(scheduler, state, init)
     draw = None if generator is None and noise_source is None else noise_drawer(init, generator, noise_source)
+    step_once = make_step_once(scheduler, model_fn, to_device(state.timesteps, sample.device), draw, clip_each_step)
     frames = movie_frames(n - start_from, capture_every, init)
-    timesteps = to_device(state.timesteps, sample.device)
-    for i in range(start_from, n):
-        model_in = scheduler.scale_model_input(state, sample, i)
-        eps = model_fn(model_in, timesteps[i].expand(sample.shape[0])).to(sample.dtype)
-        noise = None
-        if scheduler.step_uses_noise(state, i):
-            if draw is None:
-                raise ValueError("sample_loop needs a generator or a noise_source for this scheduler")
-            noise = draw(i)
-        state, sample, _ = scheduler.step(state, eps, i, sample, noise)
-        if clip_each_step is not None:
-            sample = torch.clamp(sample, -clip_each_step, clip_each_step)
-        off = i - start_from
-        if capture_every and (off % capture_every == 0 or i == n - 1):
-            frames[off // capture_every] = sample
+    sample, _, frames = chain_segment(step_once, sample, state, frames, start_from, n - start_from, n, start_from,
+                                      capture_every)
     return sample, frames
+
+
+def sde_ve_segment(scheduler, model_fn: ModelFn, sigmas: torch.Tensor, draw: Callable[[int], torch.Tensor],
+                   sample: torch.Tensor, last_mean: Optional[torch.Tensor], state, frames: Optional[torch.Tensor],
+                   seg_start: int, seg_len: int, total_steps: int, capture_every: Optional[int] = None):
+    """Predictor-corrector steps ``[seg_start, seg_start + seg_len)`` of an
+    SDE-VE chain of ``total_steps``, on the carried ``(sample, last_mean,
+    state, frames)`` (``last_mean`` is the last predictor step's mean, the
+    chain's result; the frames are the means). ``sigmas`` is the state's σ
+    table on the sample's device; step i's noise draws are ``draw(i·(c+1) +
+    j)``, c = ``correct_steps``: the correctors' j < c, then the predictor's."""
+    correct_steps = scheduler.config.correct_steps
+    for i in range(seg_start, seg_start + seg_len):
+        sigma_t = sigmas[i].expand(sample.shape[0])
+        for j in range(correct_steps):
+            score = model_fn(sample, sigma_t).to(sample.dtype)
+            sample = scheduler.step_correct(state, score, sample, draw(i * (correct_steps + 1) + j))
+        score = model_fn(sample, sigma_t).to(sample.dtype)
+        state, sample, last_mean = scheduler.step_pred(state, score, i, sample,
+                                                       draw(i * (correct_steps + 1) + correct_steps))
+        if capture_every and (i % capture_every == 0 or i == total_steps - 1):
+            frames[i // capture_every] = last_mean
+    return sample, last_mean, state, frames
 
 
 def sample_sde_ve(
@@ -120,23 +171,13 @@ def sample_sde_ve(
     """The SDE-VE predictor-corrector loop: per timestep, ``correct_steps``
     Langevin corrector steps, then one predictor step; the model sees σ_t.
     Returns the last step's ``sample_mean`` and the movie of the means (the
-    last frame the result), or None."""
+    last frame the result), or None. The chain is one ``sde_ve_segment``."""
     n = len(state.timesteps)
-    correct_steps = scheduler.config.correct_steps
     sample = init * torch.as_tensor(scheduler.init_noise_sigma, dtype=init.dtype)
-    draw = noise_drawer(init, generator, noise_source)
     frames = movie_frames(n, capture_every, init)
-    sigmas = to_device(state.sigmas, sample.device)
-    mean = None
-    for i in range(n):
-        sigma_t = sigmas[i].expand(sample.shape[0])
-        for j in range(correct_steps):
-            score = model_fn(sample, sigma_t).to(sample.dtype)
-            sample = scheduler.step_correct(state, score, sample, draw(i * (correct_steps + 1) + j))
-        score = model_fn(sample, sigma_t).to(sample.dtype)
-        _, sample, mean = scheduler.step_pred(state, score, i, sample, draw(i * (correct_steps + 1) + correct_steps))
-        if capture_every and (i % capture_every == 0 or i == n - 1):
-            frames[i // capture_every] = mean
+    _, mean, _, frames = sde_ve_segment(scheduler, model_fn, to_device(state.sigmas, sample.device),
+                                        noise_drawer(init, generator, noise_source), sample, None, state, frames,
+                                        0, n, n, capture_every)
     return mean, frames
 
 

@@ -17,8 +17,12 @@ both packages load.
 
 The train step updates the state in place, so a save copies every tensor to
 the host before it returns; what the disk gets is the state of that step,
-whatever runs next. With ``async_save`` the disk write then runs on a thread
-into a fresh ``<out>/ckpt.v{N}``, never over the live checkpoint, and
+whatever runs next. The file is written by ``write_safetensors``: the
+safetensors layout (an 8-byte header length, the JSON header, then each
+tensor's bytes), each buffer handed to ``file.write`` as it lies in host
+memory, so the interpreter lock is free while the bytes go to disk and a
+training loop runs on beside an async write. With ``async_save`` that write
+runs on a thread into a fresh ``<out>/ckpt.v{N}``, never over the live checkpoint, and
 ``data.json`` is written only once that write is known complete (at the next
 save or at ``finish_async_saves()``); superseded directories are deleted
 only after that. A crash inside the window leaves ``data.json`` naming the
@@ -38,6 +42,7 @@ import dataclasses
 import json
 import os
 import shutil
+import struct
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, Optional, Tuple
 
@@ -95,10 +100,20 @@ def _gc_stale_ckpts(out_dir: str, keep: str) -> None:
 
 def _host_copy(state, layout=None) -> Dict[str, torch.Tensor]:
     """Every tensor of the state, whole, copied to contiguous host memory
-    now (gathering a split layout's shards: a collective)."""
+    now (gathering a split layout's shards: a collective). From the card the
+    copies land in pinned memory, all queued before one synchronise: this
+    copy, not the write, is what an async save's caller waits for
+    (``chip_smoke.py`` phase 6 times both, and the copy to pageable memory)."""
+    copies = []
 
     def host(t: torch.Tensor) -> torch.Tensor:
-        return t.detach().to("cpu", memory_format=torch.contiguous_format, copy=True)
+        t = t.detach()
+        if t.device.type != "cuda":
+            return t.to("cpu", memory_format=torch.contiguous_format, copy=True)
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t, non_blocking=True)
+        copies.append(t.device)
+        return out
 
     names = list(state.params)
     whole = (lambda name, t: t) if layout is None or not layout.sharded else layout.unshard
@@ -107,14 +122,49 @@ def _host_copy(state, layout=None) -> Dict[str, torch.Tensor]:
     flat.update({f"nu/{k}": host(whole(k, v)) for k, v in zip(names, state.opt_state.nu)})
     flat["count"] = torch.tensor(state.opt_state.count, dtype=torch.int64)
     flat["step"] = torch.tensor(state.step, dtype=torch.int64)
+    for device in set(copies):
+        torch.cuda.synchronize(device)
     return flat
 
 
-def _write_state(path: str, flat: Dict[str, torch.Tensor]) -> None:
-    from safetensors.torch import save_file
+# torch dtype -> the safetensors name of it
+SAFETENSORS_DTYPES = {
+    torch.float64: "F64", torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+    torch.int64: "I64", torch.int32: "I32", torch.int16: "I16", torch.int8: "I8", torch.uint8: "U8",
+    torch.bool: "BOOL",
+}
 
+
+def write_safetensors(path: str, flat: Dict[str, torch.Tensor]) -> None:
+    """Write contiguous host tensors as a safetensors file that
+    ``safetensors.torch.load_file`` reads back bitwise: the header's length
+    (u64, little-endian), the JSON header (dtype, shape and byte offsets of
+    each tensor, padded with spaces to 8 bytes), then the tensors' bytes in
+    name order. Each tensor goes to ``file.write`` as a memoryview of its
+    own buffer: no copy, and the write releases the interpreter lock."""
+    names = sorted(flat)
+    header, offset = {}, 0
+    for name in names:
+        t = flat[name]
+        if t.device.type != "cpu" or not t.is_contiguous():
+            raise ValueError(f"{name}: write_safetensors takes contiguous host tensors, got {t.device} "
+                             f"strides {t.stride()}")
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + size]}
+        offset += size
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name in names:
+            f.write(memoryview(flat[name].reshape(-1).view(torch.uint8).numpy()))
+
+
+def _write_state(path: str, flat: Dict[str, torch.Tensor]) -> None:
     os.makedirs(path, exist_ok=True)
-    _write_atomic(os.path.join(path, STATE_FILE), lambda tmp: save_file(flat, tmp))
+    _write_atomic(os.path.join(path, STATE_FILE), lambda tmp: write_safetensors(tmp, flat))
 
 
 class _AsyncWriter:

@@ -1,9 +1,12 @@
 """Image utilities: range remap, grids, PNG save/load, result-dir enumeration
 (port of ``baddiffusion_tpu/utils/image.py``).
 
-Host-side numpy and PIL; device code never calls into here. Where the JAX
-package encodes and decodes PNGs with its threaded native codec when that is
-built, this module always uses PIL: the decoded pixels are the same.
+Host-side numpy, PIL and the threaded native PNG codec
+(``native/pngio.py``); device code never calls into here. As in the JAX
+package, ``save_images`` encodes a batch with the codec and
+``load_image_files`` decodes a list of same-geometry PNGs with it, and each
+falls back to PIL where the codec cannot be built or cannot take the files:
+the decoded pixels are the same either way.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import os
 from typing import List, Sequence
 
 import numpy as np
+
+from baddiffusion_tpu_torch.native.pngio import decode_png_batch, encode_png_batch, png_header
 
 
 def normalize(x, vmin_in: float = None, vmax_in: float = None, vmin_out: float = 0.0, vmax_out: float = 1.0,
@@ -78,10 +83,14 @@ def save_image_grid(images: np.ndarray, path: str, rows: int = None, cols: int =
 
 def save_images(images: np.ndarray, file_dir: str, file_name: str = "", start_cnt: int = 0) -> None:
     """Save a batch of [0, 1] NHWC images as ``{file_name}{i}.png``, i from
-    ``start_cnt``."""
+    ``start_cnt``: with the native codec, else with PIL."""
     os.makedirs(file_dir, exist_ok=True)
-    for i, arr in enumerate(to_uint8(images)):
-        _pil(arr).save(os.path.join(file_dir, f"{file_name}{start_cnt + i}.png"))
+    arr = to_uint8(images)
+    paths = [os.path.join(file_dir, f"{file_name}{start_cnt + i}.png") for i in range(arr.shape[0])]
+    if encode_png_batch(arr, paths):
+        return
+    for path, a in zip(paths, arr):
+        _pil(a).save(path)
 
 
 IMAGE_EXTENSIONS = {"bmp", "jpg", "jpeg", "pgm", "png", "ppm", "tif", "tiff", "webp"}
@@ -103,9 +112,17 @@ def load_image_dir(path: str, size: int = None) -> np.ndarray:
 
 def load_image_files(files, size: int = None) -> np.ndarray:
     """Decode an explicit file list into one [0, 1] float NHWC array, each
-    image resized to ``size`` × ``size`` when given."""
+    image resized to ``size`` × ``size`` when given. PNGs of the first one's
+    geometry, not resized, go through the native codec (gray, or RGB with
+    any alpha dropped); the rest through PIL."""
     from PIL import Image
 
+    header = png_header(files[0]) if size is None and all(f.endswith(".png") for f in files) else None
+    if header is not None:
+        h, w, c = header
+        batch = decode_png_batch(list(files), h, w, 1 if c in (1, 2) else 3)
+        if batch is not None:
+            return batch.astype(np.float32) / 255.0
     out = []
     for f in files:
         img = Image.open(f)

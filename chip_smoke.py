@@ -63,10 +63,14 @@
    138x138x3 PNG; data.json's epoch and step; the restored parameters, Adam
    moments, count and step, and the HF export's weights, bitwise those of the
    live state at the save; the resumed loop's start and end steps; an async
-   save, with a train step run before it is finished, read back bitwise.
-   Printed: the loop's ms a step and samples/s beside phase 4's bare step,
-   a grid's sampling time, a sync save's and the HF export's time, the
-   phase's peak memory.
+   ``save_trainer_state``, with a train step run before it is finished,
+   read back bitwise and returned in less time than a sync save took; the
+   same through ``save_checkpoint`` (with its HF export). Printed: the
+   loop's ms a step and samples/s beside phase 4's bare step, a grid's
+   sampling time, a sync save's and the HF export's time, a save's parts
+   (the host copy to pinned memory as the save makes it, and to pageable
+   memory; ``write_safetensors`` from the host copy), the async saves'
+   return times, the phase's peak memory.
 
 7. The sampler zoo (run after phase 3): the factory's 13 scheduler names
    past DDPM (DDIM, DPM-Solver and DPM-Solver++ of orders 1-3, UniPC, PNDM,
@@ -175,6 +179,25 @@
    the two ranks: rank 0's files and scores; each rank's launches against
    its UNet forwards.
 
+12. Segment mode (run last; (c) at the end of phase 8, on its run dir):
+   chains as CUDA graphs of N steps (``pipelines/segments.py``), the
+   full-width scratch UNet in bf16. (a) A 100-step DDPM chain at B=128 from
+   noise + BOX_14 in segments of 25 and of 30 (a remainder segment), each
+   bitwise the eager chain (sample, images, and the caller's generator
+   state after); a second generator replays the cached graphs bitwise its
+   own eager chain; capture_every=3 (the movie) and start_from=4 bitwise.
+   (b) DDIM, DPM-Solver++ O2, UniPC, PNDM and SDE-VE (with its corrector) at
+   B=16, 20 steps, segments of 7, each bitwise its eager chain. (c) ``cli
+   --mode measure --sample_ep 0 --sample_segment 25`` on phase 8's run dir
+   after its real-image dump is deleted: its PNGs byte for byte and
+   score.json's _ep0 scores those of phase 8 (b)'s unsegmented measure, and
+   the native PNG codec's counters show that it wrote the dump and the
+   chunks and read them back. (d) The ms a chain step eager and replayed at
+   B=16 and 128, the capture time a chain, a profiled replay (device ms, idle
+   share, K1 and K3 by kernel name). Launch counts over (a)+(b)+(d) and over
+   (c): 65 K1 and 6 K3 a UNet forward, each capture's warm-up forward among
+   them (the counters add a graph's captured launches at each replay).
+
 The last line is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its numbers. Any failed check raises, and the script exits
 non-zero. Without CUDA it exits non-zero and prints no result.
@@ -195,7 +218,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from baddiffusion_tpu_torch import anp_cli, cli, factory, ops, parallel
+from baddiffusion_tpu_torch import anp_cli, cli, factory, native, ops, parallel
 from baddiffusion_tpu_torch import model_configs as mc
 from baddiffusion_tpu_torch.data import Backdoor, DatasetLoader, trigger_mask
 from baddiffusion_tpu_torch.defense import perturb_leaves
@@ -212,7 +235,7 @@ from baddiffusion_tpu_torch.models import (
 from baddiffusion_tpu_torch.models.inception import FIDInceptionV3
 from baddiffusion_tpu_torch.ops import _build
 from baddiffusion_tpu_torch.parallel import distributed
-from baddiffusion_tpu_torch.pipelines import DiffusionPipeline, LDMPipeline, sample_chain
+from baddiffusion_tpu_torch.pipelines import DiffusionPipeline, LDMPipeline, sample_chain, segments
 from baddiffusion_tpu_torch.schedulers import (
     DDIMConfig,
     DDIMScheduler,
@@ -233,6 +256,7 @@ from baddiffusion_tpu_torch.training import (
     save_trainer_state,
     train_loop,
 )
+from baddiffusion_tpu_torch.training import checkpoint as checkpoint_module
 from baddiffusion_tpu_torch.training.trainer import step_seed
 from baddiffusion_tpu_torch.utils import Tracker, profiling
 from baddiffusion_tpu_torch.utils.profiling import device_profile, time_ms
@@ -1286,16 +1310,31 @@ def phase_trainer(dev, smi: str, bare_ms: float) -> tuple:
         print(f"   sample_grids ({TRAINER_SAMPLE_N} images, {TRAINER_SAMPLING_STEPS} steps, clean + backdoor with "
               f"movie): median {statistics.median(grid_s):.2f} s a call over {len(grid_s)} calls, "
               f"{statistics.median(call_s) / TRAINER_SAMPLING_STEPS * 1e3:.3f} ms/step a chain; on {smi}")
-        print(f"   sync save_trainer_state ({state_gb:.3f} GB of parameters, mu, nu) {save_s:.2f} s; HF export "
+        print(f"   sync save_trainer_state ({state_gb:.3f} GB of parameters, mu, nu) {save_s:.3f} s; HF export "
               f"(save_pretrained) {export_s:.2f} s; on {smi}")
+
+        # where a save's time goes: the copy to the host (pinned, as the save
+        # makes it, and pageable), and the file's write from the host copy
+        t0 = time.perf_counter()
+        flat = checkpoint_module._host_copy(state2)
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pageable = {k: t.to("cpu", copy=True) for k, t in state_tensors(state2).items() if torch.is_tensor(t)}
+        pageable_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checkpoint_module.write_safetensors(os.path.join(run_dir, "timed.safetensors"), flat)
+        write_s = time.perf_counter() - t0
+        del flat, pageable
+        print(f"   a save's parts: host copy {copy_s:.3f} s pinned ({pageable_s:.3f} s to pageable memory), "
+              f"write_safetensors {write_s:.3f} s; on {smi}")
 
         # async: a train step runs before the write is finished; the read-back holds the saved bits
         async_dir = os.path.join(run_dir, "async")
         at_save = {k: v.clone() if torch.is_tensor(v) else v for k, v in state_tensors(state2).items()}
-        t0 = time.perf_counter()
-        save_checkpoint(async_dir, state2, TRAINER_RESUME_EPOCHS - 1, make_pipeline2, async_save=True)
-        async_s = time.perf_counter() - t0
         image, is_clean = (torch.from_numpy(a).to(dev) for a in train_batch(np.random.RandomState(5), BATCH))
+        t0 = time.perf_counter()
+        save_trainer_state(async_dir, state2, TRAINER_RESUME_EPOCHS - 1, async_save=True)
+        async_s = time.perf_counter() - t0
         step2(state2, image, is_clean, torch.Generator(dev).manual_seed(6))
         t0 = time.perf_counter()
         finish_async_saves()
@@ -1303,9 +1342,22 @@ def phase_trainer(dev, smi: str, bare_ms: float) -> tuple:
         check(read_json(os.path.join(async_dir, "data.json"))["ckpt"] == "ckpt.v0", "trainer: async data.json")
         _, _, _ = load_trainer_state(async_dir, state)
         check_same_state("trainer: async save read back vs the state at the save", state_tensors(state), at_save)
+        check(async_s < save_s, f"trainer: the async save returned in {async_s:.3f} s, a sync save took {save_s:.3f} s")
+        # the same through save_checkpoint, whose HF export is written before it returns
+        at_save = {k: v.clone() if torch.is_tensor(v) else v for k, v in state_tensors(state2).items()}
+        t0 = time.perf_counter()
+        save_checkpoint(async_dir, state2, TRAINER_RESUME_EPOCHS, make_pipeline2, async_save=True)
+        async_ckpt_s = time.perf_counter() - t0
+        step2(state2, image, is_clean, torch.Generator(dev).manual_seed(7))
+        finish_async_saves()
+        check(read_json(os.path.join(async_dir, "data.json"))["ckpt"] == "ckpt.v1", "trainer: async data.json v1")
+        _, _, _ = load_trainer_state(async_dir, state)
+        check_same_state("trainer: async save_checkpoint read back vs the state at the save", state_tensors(state),
+                         at_save)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"   async save_checkpoint returned in {async_s:.2f} s (host copy and HF export), finished "
-              f"{finish_s:.2f} s after a train step; read back bitwise equal to the state at the save")
+        print(f"   async save_trainer_state returned in {async_s:.3f} s (sync: {save_s:.3f} s), finished "
+              f"{finish_s:.3f} s after a train step; async save_checkpoint (with the HF export) returned in "
+              f"{async_ckpt_s:.3f} s; both read back bitwise equal to the state at the save; on {smi}")
         print(f"   peak device memory over the phase {peak:.1f} GiB; the phase took "
               f"{time.perf_counter() - phase_t0:.1f} s; on {smi}")
     finally:
@@ -1374,9 +1426,10 @@ def count_pngs(path: str) -> int:
 def phase_cli(dev, smi: str) -> tuple:
     """Phase 8: the CLI's train+measure, sampling and measure modes, then
     anp_cli, on the full-width UNet, with the launch counters set to 0 just
-    before (a) and read just after (c); then the metrics card against CPU
-    and the numbers. Returns (train and ANP steps, sampling forwards, the
-    launch counts)."""
+    before (a) and read just after (c); then phase 12 (c) on its run dir;
+    then the metrics card against CPU and the numbers. Returns (train and
+    ANP steps, sampling forwards, the launch counts, phase 12 (c)'s launch
+    window)."""
     print(f"-- the CLI and anp_cli: cli train+measure (FAKE {CLI_FAKE_SIZE}, batch {BATCH}, 1 epoch, DDIM, measure "
           f"{CLI_MEASURE_N} + {CLI_MEASURE_N} images at {CLI_STEPS} steps), sampling, measure --sample_ep 0, "
           f"anp_cli (1 epoch, measure {ANP_MEASURE_N}); the scratch UNet at full width. {CLI_STEPS}-step DDIM "
@@ -1495,6 +1548,7 @@ def phase_cli(dev, smi: str) -> tuple:
               f"{step_logs[0]['backdoor_mse']:.4f} -> {step_logs[-1]['backdoor_mse']:.4f}; largest |γ|, |β| "
               f"{max(peaks):.4f} (budget {ANP_BUDGET}); score.json {score_anp}; export reloaded through "
               f"factory.get_trained, {moved} parameter tensors perturbed, forward finite")
+        segment_runs = segment_measure(root, run, smi)  # phase 12 (c), on this run dir
     finally:
         shutil.rmtree(root, ignore_errors=True)
         if not os.listdir(TMP_BASE):
@@ -1553,7 +1607,7 @@ def phase_cli(dev, smi: str) -> tuple:
           f"{INCEPTION_BATCH / inc_ms * 1e3:.1f} imgs/s on {smi}")
     print(f"   (e) phase 8 took {time.perf_counter() - phase_t0:.1f} s ((a) {wall_a:.1f} s, (b) {wall_b:.1f} s, "
           f"(c) {wall_c:.1f} s); peak device memory {peak:.1f} GiB; on {smi}")
-    return steps, sampled, counts
+    return steps, sampled, counts, segment_runs
 
 
 def kernel_calls(module) -> tuple:
@@ -2436,6 +2490,203 @@ def phase_scaleout(dev, smi: str) -> list:
     return runs
 
 
+SEG_STEPS, SEG_ZOO_STEPS, SEG_ZOO_SEGMENT, SEG_CLI = 100, 20, 7, 25
+SEG_ZOO = ("DDIM-SCHED", "DPM_SOLVER_PP_O2-SCHED", "UNIPC-SCHED", "PNDM-SCHED", "SCORE-SDE-VE-SCHED")
+
+
+class CaptureCounter:
+    """Counts the chains ``segments.GraphedChain`` captures while installed:
+    each capture runs one warm-up UNet forward before its graphs (a real
+    launch of every kernel of a forward)."""
+
+    def __init__(self):
+        self.captures, self.capture_s = 0, []
+        self.init = segments.GraphedChain.__init__
+
+    def __enter__(self):
+        counter = self
+
+        def init(runner, *args, **kwargs):
+            counter.init(runner, *args, **kwargs)
+            counter.captures += 1
+            counter.capture_s.append(runner.capture_s)
+
+        segments.GraphedChain.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        segments.GraphedChain.__init__ = self.init
+
+
+def check_graph_equal(label: str, got, want, gen_got, gen_want) -> None:
+    """A segmented call's outputs and its caller's generator bitwise the eager call's."""
+    check(torch.equal(got.sample, want.sample) and torch.equal(got.images, want.images),
+          f"{label}: the graphs' sample differs from the eager chain's by up to {max_err(got.sample, want.sample):.3g}")
+    if want.movie is not None:
+        check(torch.equal(got.movie, want.movie) and torch.equal(got.movie[-1], got.images),
+              f"{label}: the graphs' movie differs from the eager chain's")
+    check(torch.equal(gen_got.get_state(), gen_want.get_state()),
+          f"{label}: the caller's generator ends elsewhere than after the eager chain")
+
+
+def phase_segments(dev, smi: str) -> list:
+    """Phase 12 (a), (b), (d): segment mode as CUDA graphs on the card,
+    bitwise against the eager chains, with the launch counters set to 0
+    just before and read just after; then the numbers. Returns its launch
+    window for main's table."""
+    print(f"-- segment mode: chains as CUDA graphs of N steps; the scratch UNet at full width, bf16; "
+          f"{SEG_STEPS}-step DDPM at B={BATCH} (a), five schedulers at B={SAMPLE_BATCH} (b)")
+    phase_t0 = time.perf_counter()
+    unet = seeded_scratch_unet(dev)
+    pipe = DiffusionPipeline(unet, DDPMScheduler(DDPMConfig()), compute_dtype=torch.bfloat16)
+    trigger = torch.from_numpy(Backdoor().get_trigger("BOX_14", 3, 32)).to(dev)
+    noise = torch.randn(BATCH, 32, 32, 3, generator=torch.Generator(dev).manual_seed(120), device=dev)
+    init = noise + trigger[None]
+    forwards = [0]
+
+    def call(pipeline, seg, seed, chain_forwards, **kw):
+        """One call from a generator seeded ``seed``; returns (output, generator, wall s)."""
+        pipeline.segment_steps = seg
+        gen = torch.Generator(dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline(generator=gen, output_type="pt", **kw)
+        torch.cuda.synchronize()
+        forwards[0] += chain_forwards
+        return out, gen, time.perf_counter() - t0
+
+    pipe(init=init[:2], num_inference_steps=2)  # the kernels' first calls and cuDNN's choices, uncounted
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    times = {}
+    with CaptureCounter() as captured:
+        # (a) 100 steps at B=128 from noise + trigger: segments of 25 and of 30 (a remainder segment)
+        kw = dict(init=init, num_inference_steps=SEG_STEPS)
+        eager, gen_e, times["eager_128"] = call(pipe, None, 1, SEG_STEPS, **kw)
+        for seg in (25, 30):
+            got, gen_g, dt = call(pipe, seg, 1, SEG_STEPS, **kw)
+            times.setdefault(f"first_{BATCH}", dt)  # segments of 25: the call that captures
+            check_graph_equal(f"segments of {seg}, B={BATCH}", got, eager, gen_g, gen_e)
+        # another generator replays the cached graphs
+        eager2, gen_e2, _ = call(pipe, None, 2, SEG_STEPS, **kw)
+        got, gen_g2, times["replay_128"] = call(pipe, 25, 2, SEG_STEPS, **kw)
+        check_graph_equal(f"segments of 25, B={BATCH}, a second generator", got, eager2, gen_g2, gen_e2)
+        check(not torch.equal(eager.sample, eager2.sample), "two generators gave the same chain")
+        for extra in (dict(save_every_step=True, capture_every=3), dict(start_from=4)):
+            n_fwd = SEG_STEPS - extra.get("start_from", 0)
+            want, gen_w, _ = call(pipe, None, 3, n_fwd, **kw, **extra)
+            got, gen_g, _ = call(pipe, 25, 3, n_fwd, **kw, **extra)
+            check_graph_equal(f"segments of 25, B={BATCH}, {extra}", got, want, gen_g, gen_w)
+            if "capture_every" in extra:
+                check(got.movie.shape == (34, BATCH, 32, 32, 3), f"movie shape {tuple(got.movie.shape)}")
+        print(f"   (a) {SEG_STEPS}-step bf16 DDPM at B={BATCH} from noise + BOX_14: segments of 25 and of 30 "
+              f"bitwise the eager chain (sample, images, the generator's state after); a second generator "
+              f"replays the cached graphs bitwise its eager chain; capture_every=3 (34 frames) and "
+              f"start_from=4 bitwise")
+
+        # (b) five schedulers at B=16, 20 steps, segments of 7
+        zoo_ms = []
+        for name in SEG_ZOO:
+            scheduler, kind = zoo_scheduler(name)
+            zpipe = factory._make_get_pipeline(unet, kind, factory.DiffuserModelSched.CLIP_SAMPLE_DEFAULT)(
+                scheduler, compute_dtype=torch.bfloat16)
+            zkw = dict(init=init[:SAMPLE_BATCH], num_inference_steps=SEG_ZOO_STEPS)
+            n_fwd = zoo_forwards(scheduler, kind, SEG_ZOO_STEPS)[1]
+            want, gen_w, _ = call(zpipe, None, 4, n_fwd, **zkw)
+            got, gen_g, _ = call(zpipe, SEG_ZOO_SEGMENT, 4, n_fwd, **zkw)
+            check_graph_equal(f"{name} in segments of {SEG_ZOO_SEGMENT}", got, want, gen_g, gen_w)
+            check(bool(torch.isfinite(got.sample).all()), f"{name}: sample not finite")
+            zoo_ms.append(f"{name} {len(zpipe._graphs)} chain(s), {n_fwd} forwards")
+        print(f"   (b) bitwise the eager chains at B={SAMPLE_BATCH}, {SEG_ZOO_STEPS} steps, segments of "
+              f"{SEG_ZOO_SEGMENT}: {'; '.join(zoo_ms)}")
+
+        # (d) ms a chain step, eager and replayed, at B=16 and B=128
+        kw16 = dict(init=init[:SAMPLE_BATCH], num_inference_steps=SEG_STEPS)
+        _, _, times["eager_16"] = call(pipe, None, 5, SEG_STEPS, **kw16)
+        _, _, times["first_16"] = call(pipe, 25, 5, SEG_STEPS, **kw16)
+        _, _, times["replay_16"] = call(pipe, 25, 6, SEG_STEPS, **kw16)
+    counts = ops.launch_counts()
+    want_fwd = forwards[0] + captured.captures
+    want = {"groupnorm_silu": GN_PER_FORWARD * want_fwd, "groupnorm_silu_backward": 0,
+            "attention": ATTN_PER_FORWARD * want_fwd}
+    for b in (SAMPLE_BATCH, BATCH):
+        print(f"   (d) B={b}, {SEG_STEPS}-step DDPM: eager {times[f'eager_{b}'] / SEG_STEPS * 1e3:.3f} ms/step, graphs "
+              f"replayed {times[f'replay_{b}'] / SEG_STEPS * 1e3:.3f} ms/step (segments of 25), first call with "
+              f"its capture {times[f'first_{b}'] / SEG_STEPS * 1e3:.3f} ms/step; on {smi}")
+    print(f"   (d) {captured.captures} chains captured, {statistics.median(captured.capture_s):.2f} s a capture "
+          f"(median; max {max(captured.capture_s):.2f} s: warm-up forward, capture, synchronise)")
+    pipe.segment_steps = 25
+    gen = torch.Generator(dev).manual_seed(7)
+    wall, dev_ms, kern, _ = device_profile(lambda: pipe(init=init[:SAMPLE_BATCH], generator=gen,
+                                                        num_inference_steps=SEG_STEPS, output_type="pt"), reps=1)
+    by_class = profiling.device_time_by_class(kern)
+    k1 = [k for k in kern if "groupnorm_silu_fwd_kernel" in k]
+    k3 = [k for k in kern if "attention_packed_kernel" in k]
+    print(f"   (d) profiled replay of a {SEG_STEPS}-step chain at B={SAMPLE_BATCH} (4 graphs): "
+          f"{wall / SEG_STEPS:.3f} ms/step wall, {dev_ms / SEG_STEPS:.3f} ms/step device kernels, device idle "
+          f"{100 * max(0.0, 1 - dev_ms / wall):.1f}%; kernels by name: {k1[:1]} {by_class['K1'] / SEG_STEPS:.4f} "
+          f"ms/step, {k3[:1]} {by_class['K3'] / SEG_STEPS:.4f} ms/step")
+    print(f"     device time per step: {breakdown(kern, SEG_STEPS)}")
+    check(bool(k1) and bool(k3), f"the profiler showed no K1/K3 kernels of the graphs: {sorted(kern)[:10]}")
+    print(f"   phase 12 (a), (b), (d) took {time.perf_counter() - phase_t0:.1f} s; on {smi}")
+    return [("segment mode", f"{want_fwd} UNet forwards ({captured.captures} capture warm-ups)", counts, want)]
+
+
+def segment_measure(root: str, run: str, smi: str) -> list:
+    """Phase 12 (c), in phase 8's scratch directory: ``--mode measure
+    --sample_ep 0 --sample_segment 25`` on its run dir, after the real-image
+    dump is deleted (the measure writes it again), with the launch counters
+    and the PNG codec's counters set to 0 just before and read just after.
+    Its PNGs byte for byte, and score.json's _ep0 keys, those of phase 8
+    (b)'s unsegmented measure; the codec wrote the dump and the chunks and
+    read them back. Returns its launch window."""
+    subs = [os.path.join(run, "measure", "ep0", s) for s in ("clean_noclip", "backdoor_noclip")]
+
+    def pngs():
+        return {(d, f): open(os.path.join(d, f), "rb").read() for d in subs for f in sorted(os.listdir(d))}
+
+    before = pngs()
+    keys = ("FID_proxy_ep0_noclip", "MSE_ep0_noclip", "SSIM_ep0_noclip")
+    scores = {k: read_json(os.path.join(run, "score.json"))[k] for k in keys}
+    shutil.rmtree(os.path.join(root, "measure", "FAKE"))
+    cwd = os.getcwd()
+    native.reset_counts()
+    forwards = 2 * -(-CLI_MEASURE_N // CLI_EVAL_BATCH) * CLI_STEPS
+    try:
+        os.chdir(root)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with CaptureCounter() as captured:
+            cli.main(["--mode", "measure", "--ckpt", run, "--sample_ep", "0", "--sample_segment", str(SEG_CLI),
+                      "--gpu", "0"])
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        os.chdir(cwd)
+    codec = native.counts()
+    after = pngs()
+    now = {k: read_json(os.path.join(run, "score.json"))[k] for k in keys}
+    check(after.keys() == before.keys() and all(after[k] == before[k] for k in before),
+          f"phase 12 (c): {sum(after.get(k) != v for k, v in before.items())} of {len(before)} PNGs differ from "
+          "the unsegmented measure's")
+    check(now == scores, f"phase 12 (c): score.json {now}, unsegmented {scores}")
+    chunks = 2 * -(-CLI_MEASURE_N // CLI_EVAL_BATCH)
+    check(native.native_available() and codec["encoded"] >= 1 + chunks and codec["decoded"] >= 3,
+          f"phase 12 (c): the PNG codec encoded {codec['encoded']} batches (the dump and {chunks} chunks) and "
+          f"decoded {codec['decoded']} (the FID's two dirs and the MSE's): {native.pngio._library.error}")
+    print(f"   (c) cli --mode measure --sample_ep 0 --sample_segment {SEG_CLI} ({CLI_MEASURE_N} + {CLI_MEASURE_N} "
+          f"images, {CLI_STEPS} DDIM steps in segments of {SEG_CLI}, f32): {len(after)} PNGs byte for byte and "
+          f"score.json {now} equal to the unsegmented measure's; the native PNG codec encoded {codec['encoded']} "
+          f"batches (the real-image dump, written again, and the chunks) and decoded {codec['decoded']} (the "
+          f"read-back); {captured.captures} chain captured; {wall:.1f} s; on {smi}")
+    want_fwd = forwards + captured.captures
+    return [("segment-mode measure", f"{want_fwd} UNet forwards ({captured.captures} capture warm-up)", counts,
+             {"groupnorm_silu": GN_PER_FORWARD * want_fwd, "groupnorm_silu_backward": 0,
+              "attention": ATTN_PER_FORWARD * want_fwd})]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs only on a GPU", file=sys.stderr)
@@ -2449,8 +2700,9 @@ def main() -> int:
     zoo_fwd, zoo = phase_zoo(dev, smi)
     steps, training, bare_ms = phase_train(dev, smi)
     loop_steps, loop_sampled, trainer_counts = phase_trainer(dev, smi, bare_ms)
-    cli_steps, cli_sampled, cli_counts = phase_cli(dev, smi)
-    latent_runs = phase_latent(dev, smi) + phase_published(dev, smi) + phase_scaleout(dev, smi)
+    cli_steps, cli_sampled, cli_counts, segment_runs = phase_cli(dev, smi)
+    latent_runs = (phase_latent(dev, smi) + phase_published(dev, smi) + phase_scaleout(dev, smi)
+                   + phase_segments(dev, smi) + segment_runs)
 
     for path, n, counts, want in (
         ("sampling", f"{forwards} UNet forwards", sampling,

@@ -1,7 +1,8 @@
 """The port's command line against the JAX package on the CPU: ``config.setup``
 in every mode (resolved fields, run-dir name, allow-list errors, resume's
-stored learning rate, ``--sample_segment`` parsed and then refused), the
-CLI's train+measure end to end on the TINY arch, the measure's
+stored learning rate), the CLI's train+measure end to end on the TINY arch,
+``--sample_segment`` running in every mode (a measure with it writes what
+one without it writes), the measure's
 ``score.json`` against the JAX ``run_measure`` on one seeded TINY UNet with
 JAX's noise handed in, and the factory's model half."""
 
@@ -37,6 +38,7 @@ from baddiffusion_tpu.schedulers import ScoreSdeVeScheduler as JaxScoreSdeVeSche
 from baddiffusion_tpu_torch import cli, factory
 from baddiffusion_tpu_torch.config import device_from_gpu, setup, shares_card
 from baddiffusion_tpu_torch.parallel import make_mesh
+from baddiffusion_tpu_torch.pipelines import segments
 
 
 @pytest.fixture(autouse=True)
@@ -193,16 +195,6 @@ def test_gpu_flag_selects_the_device(tmp_path, monkeypatch):
         setup(train_args(tmp_path, ["--postfix", "g"])).device
 
 
-def test_sample_segment_is_parsed_in_every_mode_and_refused_by_every_run(tmp_path):
-    config = setup(train_args(tmp_path, ["--sample_segment", "100", "--gpu", "cpu"]))
-    assert config.sample_segment == 100
-    for mode in ("sampling", "measure", "resume"):
-        assert setup(["--mode", mode, "--ckpt", config.output_dir, "--sample_segment", "50"]).sample_segment == 50
-    for run in (cli.run_train, cli.run_sampling, cli.run_measure):
-        with pytest.raises(ValueError, match="XLA"):
-            run(config)
-
-
 @pytest.mark.parametrize("flags", [["--model_parallel", "2"], ["--param_sharding", "fsdp"]], ids=["tp", "fsdp"])
 def test_mesh_flags_and_multi_process_raise(tmp_path, monkeypatch, flags):
     """The mesh flags take effect over several ranks (tests/test_torch_parallel*.py
@@ -265,6 +257,59 @@ def test_cli_train_measure_sampling_resume_end_to_end(tmp_path, monkeypatch, tin
     cli.main(["--mode", "resume", "--ckpt", out, "--gpu", "cpu"])
     with open(os.path.join(out, "data.json")) as f:
         assert json.load(f)["step"] > step_before
+
+
+def test_sample_segment_runs_in_every_mode(tmp_path, monkeypatch, tiny_arch):
+    """``--sample_segment`` is parsed in every mode and every mode's chains
+    run in segments: train+measure's grids and measure, then sampling,
+    measure and resume on the run dir (the JAX CLI sets it in the same
+    places)."""
+    small_proxy(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+    segmented = []
+    real = segments.Chain.run_eager
+    monkeypatch.setattr(segments.Chain, "run_eager",
+                        lambda self, init, model, draw, seg: segmented.append(seg) or real(self, init, model, draw, seg))
+    cli.main(["--mode", "train+measure", "--dataset", "FAKE", "--batch", "64", "--epoch", "1", "--fake_size", "64",
+              "--measure_sample_n", "2", "--eval_max_batch", "2", "--sampling_steps", "3", "--measure_steps", "3",
+              "--sample_segment", "2", "--result", str(tmp_path), "-o", "--gpu", "cpu"])
+    (out,) = [str(p) for p in tmp_path.glob("res_*")]
+    runs = {"train+measure": len(segmented)}
+    for mode in ("sampling", "measure", "resume"):
+        config = setup(["--mode", mode, "--ckpt", out, "--sample_segment", "2", "--gpu", "cpu"])
+        assert config.sample_segment == 2
+        before = len(segmented)
+        cli.main(["--mode", mode, "--ckpt", out, "--sample_segment", "2", "--gpu", "cpu"])
+        runs[mode] = len(segmented) - before
+    # grids: clean + backdoor; measure: clean + backdoor; resume's grids again
+    assert runs == {"train+measure": 4, "sampling": 2, "measure": 2, "resume": 2}, runs
+    assert set(segmented) == {2}
+
+
+def test_measure_with_sample_segment_writes_what_it_writes_without(tmp_path, monkeypatch, tiny_arch):
+    """One seeded TINY UNet in a run dir, measured with and without
+    ``--sample_segment 3`` (DDPM, 7 steps: segments of 3, 3 and 1): the same
+    PNG files byte for byte and the same ``score.json``."""
+    small_proxy(monkeypatch)
+    config = setup(train_args(tmp_path, ["--fake_size", "64", "--trigger", "BOX_14", "--target", "CORNER",
+                                         "--gpu", "cpu"]))
+    _, scheduler, get_pipeline = factory.get_model_sched(32, 3, rng_seed=3, device="cpu")
+    get_pipeline(scheduler, device="cpu").save_pretrained(config.output_dir)
+    flags = ["--measure_sample_n", "6", "--eval_max_batch", "4", "--measure_steps", "7", "--gpu", "cpu"]
+    got = {}
+    for name, extra in (("whole", []), ("segmented", ["--sample_segment", "3"])):
+        os.makedirs(tmp_path / name)
+        monkeypatch.chdir(tmp_path / name)
+        cli.run_measure(setup(["--mode", "measure", "--ckpt", config.output_dir] + flags + extra))
+        files = {}
+        for sub in ("clean_noclip", "backdoor_noclip"):
+            d = os.path.join(config.output_dir, "measure", sub)
+            files.update({(sub, f): open(os.path.join(d, f), "rb").read() for f in sorted(os.listdir(d))})
+        with open(os.path.join(config.output_dir, "score.json")) as f:
+            got[name] = files, json.load(f)
+        shutil.rmtree(os.path.join(config.output_dir, "measure"))
+    assert len(got["whole"][0]) == 12
+    assert got["segmented"] == got["whole"]
 
 
 def test_cli_runs_on_cuda_by_default(tmp_path, monkeypatch, tiny_arch):

@@ -5,7 +5,9 @@ bitwise-repeatable dx, dγ and dβ, a small UNet on the card against the
 CPU's plain path (forward, one train step, two steps of ``train_loop``, a
 DPM-Solver++ chain), ``device_prefetch``'s side-stream copies, each
 scheduler of the zoo with a stand-in denoiser on the card against the CPU,
-and the scale-out path on one card: the train step through a world of one
+segment mode's CUDA graphs (bitwise the eager chain, with two generators, the
+callers' generator states, weights updated in place, the bounded cache), and
+the scale-out path on one card: the train step through a world of one
 rank over NCCL bitwise equal to the plain step, and two ranks sharing the
 card over gloo (this file run as their script) equal to one rank.
 
@@ -622,6 +624,83 @@ def test_small_unet_dpm_solver_chain_on_the_card_matches_the_cpu(dev):
                                    "attention": SMALL_ATTN * 10}
     got = out.sample.cpu()
     torch.testing.assert_close(got, want, atol=1e-3 * want.abs().max().item(), rtol=1e-3)
+
+
+SEGMENT_CASES = {  # factory name, steps, segment, call keywords
+    "ddpm-remainder": ("DDPM-SCHED", 12, 5, {}),
+    "ddpm-movie": ("DDPM-SCHED", 10, 4, dict(save_every_step=True, capture_every=3)),
+    "ddpm-start_from": ("DDPM-SCHED", 10, 2, dict(start_from=4)),
+    "unipc": ("UNIPC-SCHED", 10, 3, {}),
+    "pndm": ("PNDM-SCHED", 10, 4, {}),
+    "sde-ve": ("SCORE-SDE-VE-SCHED", 10, 3, dict(save_every_step=True, capture_every=4)),
+}
+
+
+def _small_pipeline(name, dtype=torch.bfloat16):
+    card = UNet2DModel(SMALL, generator=torch.Generator().manual_seed(7))
+    make_scheduler, kind = factory._sched_spec(name)
+    return factory._make_get_pipeline(card, kind, False)(make_scheduler(False)), card
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segment_graphs_replay_the_eager_chain_bitwise(dev, case):
+    """The chain as CUDA graphs of ``seg`` steps against the eager chain, in
+    bf16 on the small UNet from noise drawn by the pipeline: the sample, the
+    images and the movie bitwise; a second call with another generator
+    replays the cached graphs and equals that generator's eager chain; each
+    caller's generator ends where the eager chain leaves it; the counters
+    count the replays' launches (one forward a chain step, plus the capture's
+    warm-up forward)."""
+    name, n, seg, kw = SEGMENT_CASES[case]
+    pipe, _ = _small_pipeline(name)
+    pipe.compute_dtype = torch.bfloat16
+    forwards = {"SCORE-SDE-VE-SCHED": 2 * n, "PNDM-SCHED": None}.get(name, n - kw.get("start_from", 0))
+    for seed in (1, 2):
+        gens = [torch.Generator(dev).manual_seed(seed) for _ in range(2)]
+        pipe.segment_steps = None
+        want = pipe(batch_size=3, generator=gens[0], num_inference_steps=n, output_type="pt", **kw)
+        pipe.segment_steps = seg
+        ops.reset_launch_counts()
+        got = pipe(batch_size=3, generator=gens[1], num_inference_steps=n, output_type="pt", **kw)
+        counts = ops.launch_counts()
+        assert torch.equal(got.sample, want.sample) and torch.equal(got.images, want.images), (case, seed)
+        if want.movie is not None:
+            assert torch.equal(got.movie, want.movie) and torch.equal(got.movie[-1], got.images)
+        assert torch.equal(gens[0].get_state(), gens[1].get_state())
+        if forwards is not None:
+            total = forwards + (1 if seed == 1 else 0)  # the first call captures, after one warm-up forward
+            assert counts == {"groupnorm_silu": SMALL_GN * total, "groupnorm_silu_backward": 0,
+                              "attention": SMALL_ATTN * total}, (case, seed, counts)
+    assert len(pipe._graphs) == 1
+
+
+def test_segment_graphs_sample_weights_updated_in_place(dev):
+    """The graphs read a copy of the UNet refreshed at every call: after the
+    live weights change in place, a replay samples the new weights."""
+    pipe, card = _small_pipeline("DDIM-SCHED")
+    pipe.segment_steps = 3
+    before = pipe(batch_size=2, generator=torch.Generator(dev).manual_seed(0), num_inference_steps=8,
+                  output_type="pt").sample
+    with torch.no_grad():
+        for p in card.parameters():
+            p.mul_(1.01)
+    after = pipe(batch_size=2, generator=torch.Generator(dev).manual_seed(0), num_inference_steps=8,
+                 output_type="pt").sample
+    pipe.segment_steps = None
+    eager = pipe(batch_size=2, generator=torch.Generator(dev).manual_seed(0), num_inference_steps=8,
+                 output_type="pt").sample
+    assert not torch.equal(before, after) and torch.equal(after, eager)
+    assert len(pipe._graphs) == 1
+
+
+def test_segment_graphs_refuse_a_noise_source_and_keep_a_bounded_cache(dev):
+    pipe, _ = _small_pipeline("DDPM-SCHED")
+    pipe.segment_steps = 2
+    with pytest.raises(ValueError, match="noise_source"):
+        pipe(batch_size=1, num_inference_steps=4, noise_source=lambda k: torch.zeros(1, 16, 16, 3))
+    for b in range(1, 7):
+        pipe(batch_size=b, num_inference_steps=4, output_type="pt")
+    assert len(pipe._graphs) == 4 and [k[0][0] for k in pipe._graphs] == [3, 4, 5, 6]
 
 
 def _small_step_world(device, layout_mesh=None, grad_accum=1):

@@ -82,7 +82,7 @@ def test_attack_then_defense(tmp_path, capsys):
 def test_train_sde_ve(tmp_path):
     out = str(tmp_path / "ve")
     row = train_sde_ve.run(2, 4, n=4, out=out, dataset="FAKE", sampling_steps=5, fake_size=8,
-                           model_config=TINY_SCORE, device="cpu", log_every=1)
+                           model_config=TINY_SCORE, device="cpu", log_every=1, sample_segment=2)
     assert np.isfinite(row["FID_proxy"]) and np.isfinite(row["final_loss"])
     assert row["steps"] == 5 and row["measure_sample_n"] == 4 and row["train_steps"] == 2
     assert sorted(os.listdir(out)) == ["model_index.json", "pc_grid.png", "pc_samples", "ref_images", "result.json",
@@ -103,7 +103,10 @@ def test_train_sde_ve(tmp_path):
     (defense_demo, ["--ckpt", "r"], dict(ckpt="r", steps=300, budget=4.0, lr=1e-4, out="defense_demo_out",
                                          device="cuda")),
     (train_sde_ve, [], dict(steps=4000, batch=128, lr=2e-4, sigma_max=50.0, n=256, out="sde_ve_out",
-                            dataset="CIFAR10", device="cuda")),
+                            dataset="CIFAR10", sample_segment=500, device="cuda")),
+    (train_sde_ve, ["--sample_segment", "0", "--gpu", "cpu"],
+     dict(steps=4000, batch=128, lr=2e-4, sigma_max=50.0, n=256, out="sde_ve_out", dataset="CIFAR10",
+          sample_segment=None, device="cpu")),
 ])
 def test_main_parses_the_jax_flags(monkeypatch, module, argv, want):
     seen = {}

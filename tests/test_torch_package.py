@@ -71,12 +71,18 @@ LATENT_MODULES = ("models.vae", "models.blocks", "models.resnet", "pipelines.ldm
 DEMO_MODULES = ("utils.profiling", "examples.attack_demo", "examples.defense_demo", "examples.train_sde_ve")
 # the scale-out modules, likewise
 PARALLEL_MODULES = ("parallel.distributed", "parallel.mesh", "parallel.sharding_rules", "parallel.layout")
+# segment mode, the PNG codec and the further examples, likewise
+SEGMENT_MODULES = ("pipelines.segments", "native.pngio", "examples.sampling_batch_sweep", "examples.sampler_sweep",
+                   "examples.bf16_drift", "examples.anp_dose_response", "examples.anp_frontier",
+                   "examples.stage_fake_datasets", "examples.profile_attribution", "examples.mfu_analysis",
+                   "examples.accum_variants")
 
 
 def test_every_module_imports_without_nvcc_or_a_gpu():
     names = [m.name for m in pkgutil.walk_packages([PACKAGE_DIR], prefix="baddiffusion_tpu_torch.")]
     assert "baddiffusion_tpu_torch.ops._build" in names and "baddiffusion_tpu_torch.pipelines.pipeline" in names
-    for modules in (TRAINER_MODULES, ZOO_MODULES, CLI_MODULES, LATENT_MODULES, DEMO_MODULES, PARALLEL_MODULES):
+    for modules in (TRAINER_MODULES, ZOO_MODULES, CLI_MODULES, LATENT_MODULES, DEMO_MODULES, PARALLEL_MODULES,
+                    SEGMENT_MODULES):
         assert {f"baddiffusion_tpu_torch.{m}" for m in modules} <= set(names)
         checked = {os.path.relpath(p, PACKAGE_DIR) for p in _sources()}
         assert {m.replace(".", os.sep) + ".py" for m in modules} <= checked
@@ -88,7 +94,8 @@ def test_new_modules_load_no_jax_in_a_fresh_interpreter():
     """Importing each command-line, metric and defense module (and the package's
     entry points) in a fresh interpreter leaves no JAX, flax, optax or
     ``baddiffusion_tpu`` module in ``sys.modules``."""
-    modules = CLI_MODULES + LATENT_MODULES + DEMO_MODULES + PARALLEL_MODULES + ("metrics", "defense", "parallel")
+    modules = (CLI_MODULES + LATENT_MODULES + DEMO_MODULES + PARALLEL_MODULES + SEGMENT_MODULES
+               + ("metrics", "defense", "parallel", "native"))
     names = [f"baddiffusion_tpu_torch.{m}" for m in modules]
     code = ("import importlib, json, sys\n"
             f"for name in {names!r}:\n"

@@ -404,6 +404,36 @@ def test_checkpoint_round_trip_is_bitwise(tmp_path, async_save):
         _assert_same_state(fresh.state, run.state)
 
 
+def test_async_writer_file_reads_back_bitwise_with_every_dtype(tmp_path):
+    """The trainer state's file, written by the async writer thread
+    (``write_safetensors``: header, then each host buffer through
+    ``file.write``), read back by safetensors' own ``load_file`` bitwise:
+    the state's f32 parameters and moments and int64 count and step, and a
+    tensor of every other dtype the writer takes."""
+    from safetensors.torch import load_file
+
+    from baddiffusion_tpu_torch.training.checkpoint import SAFETENSORS_DTYPES, write_safetensors
+
+    run = _trained_run(tmp_path)
+    out = str(tmp_path / "async")
+    flat = save_trainer_state(out, run.state, 1, async_save=True)
+    finish_async_saves()
+    back = load_file(os.path.join(out, "ckpt.v0", "state.safetensors"))
+    assert {t.dtype for t in flat.values()} == {torch.float32, torch.int64}
+    assert set(back) == set(flat)
+    for k, t in flat.items():
+        assert back[k].dtype == t.dtype and back[k].shape == t.shape and torch.equal(back[k], t), k
+    g = torch.Generator().manual_seed(0)
+    every = {str(dt): (torch.randn(3, 5, generator=g) * 50).to(dt) for dt in SAFETENSORS_DTYPES}
+    every["empty"], every["scalar"] = torch.zeros(0, 4), torch.tensor(2.5)
+    write_safetensors(str(tmp_path / "every.safetensors"), every)
+    back = load_file(str(tmp_path / "every.safetensors"))
+    for k, t in every.items():
+        assert back[k].dtype == t.dtype and back[k].shape == t.shape and torch.equal(back[k], t), k
+    with pytest.raises(ValueError, match="contiguous host tensors"):
+        write_safetensors(str(tmp_path / "bad.safetensors"), {"x": torch.zeros(4, 4).t()})
+
+
 def test_load_refuses_a_checkpoint_of_another_model(tmp_path):
     run = _trained_run(tmp_path)
     save_trainer_state(str(tmp_path / "c"), run.state, 0)
