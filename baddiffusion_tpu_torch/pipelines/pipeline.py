@@ -28,7 +28,8 @@ kept a pipeline, the least recently used dropped first (with its graphs and
 their memory): a measure's last, shorter chunk captures anew. The graphs
 read one copy of the UNet in the compute dtype, refreshed from the live
 weights at every call. A chain on a mesh holds no collective, so each rank
-captures its own.
+captures its own; its graphs draw at the whole batch and keep the rank's
+rows, so the whole batch's shape is part of the cache key.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from baddiffusion_tpu_torch.parallel.distributed import take_rows
 from baddiffusion_tpu_torch.parallel.layout import all_gather_dim
 from baddiffusion_tpu_torch.parallel.mesh import DATA_AXIS, axis
 from baddiffusion_tpu_torch.pipelines.sampler import (
+    Chain,
     NoiseSource,
     chain_images,
     noise_drawer,
@@ -57,7 +59,7 @@ from baddiffusion_tpu_torch.pipelines.sampler import (
     sample_chain,
     trim_padded,
 )
-from baddiffusion_tpu_torch.pipelines.segments import Chain, GraphedChain, compute_twin, refresh_twin
+from baddiffusion_tpu_torch.pipelines.segments import GraphedChain, compute_twin, refresh_twin
 from baddiffusion_tpu_torch.schedulers import load_scheduler
 from baddiffusion_tpu_torch.utils.image import batchify, save_images
 
@@ -189,15 +191,19 @@ class DiffusionPipeline:
             return lambda k: take_rows(pad_batch_for_mesh(draw(k), count)[0], index, count)
 
         karras_ve = self.scheduler.hf_class_name == "KarrasVeScheduler"
+        segment_steps = None
         if self.segment_steps and not karras_ve and self.segment_steps < n - start_from:
-            sample, movie = self._run_segmented(init, generator, noise_source, make_draw, n, start_from,
-                                                capture_every)
-        else:
+            segment_steps = int(self.segment_steps)
+        if segment_steps and self.device.type == "cuda":
+            sample, movie = self._run_segmented(init, whole.shape, generator, noise_source, make_draw, n, start_from,
+                                                capture_every, segment_steps)
+        else:  # the chain whole, or its segments eagerly one after another
             state = self.scheduler.set_timesteps(self.scheduler.create_state(), n)
             sample, movie = sample_chain(
                 self.scheduler, state, self._compute_unet(), init,
                 generator=generator, noise_source=make_draw(generator) if count > 1 else noise_source,
                 start_from=start_from, clip_each_step=self.clip_each_step, capture_every=capture_every,
+                segment_steps=segment_steps,
             )
         images = chain_images(self.scheduler, sample)
         movie = None if movie is None else chain_images(self.scheduler, movie)
@@ -209,22 +215,13 @@ class DiffusionPipeline:
             return PipelineOutput(images=images, movie=movie, sample=sample)
         return PipelineOutput(images=images.cpu().numpy(), movie=None if movie is None else movie.cpu().numpy())
 
-    def _run_segmented(self, init, generator, noise_source, make_draw, n: int, start_from: int, capture_every):
-        """The chain in segments of ``segment_steps``: eagerly on the CPU,
-        as cached CUDA graphs on the card. Returns (sample, movie)."""
-        segment_steps = int(self.segment_steps)
-        if self.device.type != "cuda":
-            chain = Chain(self.scheduler, n, start_from, self.clip_each_step, capture_every, self.device)
-            return chain.run_eager(init, self._compute_unet(), make_draw(generator), segment_steps)
+    def _run_segmented(self, init, whole_shape, generator, noise_source, make_draw, n: int, start_from: int,
+                       capture_every, segment_steps: int):
+        """The chain on the card in segments of ``segment_steps``, as cached
+        CUDA graphs. Returns (sample, movie)."""
         if noise_source is not None:
             raise ValueError("a segmented chain on the card draws its noise inside CUDA graphs: "
                              "a noise_source cannot be captured")
-        return self._graphed_chain(init.shape, n, start_from, capture_every, segment_steps, make_draw)(
-            init, generator)
-
-    def _graphed_chain(self, shape, n: int, start_from: int, capture_every, segment_steps: int, make_draw):
-        """The cached ``GraphedChain`` of this call's shape and settings,
-        captured now if it is new, with the graphs' UNet copy refreshed."""
         dtype = self.compute_dtype or self.unet.dtype
         twin_key = (id(self.unet), dtype)
         if self._twin is None or self._twin[0] != twin_key:
@@ -232,17 +229,20 @@ class DiffusionPipeline:
             self._twin = (twin_key, compute_twin(self.unet, dtype))
         twin = self._twin[1]
         refresh_twin(twin, self.unet)
-        key = (tuple(shape), n, start_from, capture_every, segment_steps, self.scheduler, self.clip_each_step,
-               id(self.mesh))
+        # on a mesh the graphs draw at the whole (unpadded) batch and keep
+        # this rank's rows: two batches that pad to the same rows draw apart
+        key = (tuple(init.shape), tuple(whole_shape), n, start_from, capture_every, segment_steps, self.scheduler,
+               self.clip_each_step, id(self.mesh))
         runner = self._graphs.get(key)
         if runner is None:
-            chain = Chain(self.scheduler, n, start_from, self.clip_each_step, capture_every, self.device)
-            runner = GraphedChain(chain, twin, shape, segment_steps, make_draw, self.device)
+            state = self.scheduler.set_timesteps(self.scheduler.create_state(), n)
+            chain = Chain(self.scheduler, state, self.device, start_from, self.clip_each_step, capture_every)
+            runner = GraphedChain(chain, twin, init.shape, segment_steps, make_draw, self.device)
             self._graphs[key] = runner
             while len(self._graphs) > GRAPH_CACHE_SIZE:
                 self._graphs.popitem(last=False)
         self._graphs.move_to_end(key)
-        return runner
+        return runner(init, generator)
 
 
 def chunk_generator(device: torch.device, seed: int, index: int) -> torch.Generator:

@@ -8,8 +8,10 @@
                            step always lands in the last slot
   (d) ``start_from``     — skip the first k timesteps
 
-The JAX chains are ``lax.scan`` programs; here they are Python loops of
-eager steps, and a step draws noise only when it uses it. The noise comes
+The JAX chains are ``lax.scan`` programs; here every chain but Karras-VE's
+is one ``Chain``: Python loops of eager steps, run whole or in segments
+(``pipelines/segments.py`` captures the segments as CUDA graphs), and a
+step draws noise only when it uses it. The noise comes
 from ``noise_source(k)`` when given (the tests inject the JAX package's own
 draws, in the order its key splits make them), else from ``generator``:
 ``k`` is the step index for the generic chain and Karras-VE, and for SDE-VE
@@ -20,7 +22,7 @@ chain on the card makes no synchronising call.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -108,32 +110,76 @@ def chain_segment(step_once: Callable, sample: torch.Tensor, state, frames: Opti
     return sample, state, frames
 
 
-def sample_loop(
-    scheduler,
-    state,
-    model_fn: ModelFn,
-    init: torch.Tensor,
-    generator: Optional[torch.Generator] = None,
-    noise_source: Optional[NoiseSource] = None,
-    start_from: int = 0,
-    clip_each_step: Optional[float] = None,
-    capture_every: Optional[int] = None,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Run the reverse chain from ``init``; returns (final_sample, movie).
+Carry = Tuple[torch.Tensor, Optional[torch.Tensor], object, Optional[torch.Tensor]]  # sample, last_mean, state, frames
 
-    ``state`` must already carry inference timesteps (``set_timesteps``).
-    ``movie`` is ``[n_frames, *init.shape]``: every ``capture_every``-th
-    sample after a step, the final sample in the last frame; or None. The
-    chain is one ``chain_segment`` over every step.
-    """
-    n = len(state.timesteps)
-    sample, state = chain_prologue(scheduler, state, init)
-    draw = None if generator is None and noise_source is None else noise_drawer(init, generator, noise_source)
-    step_once = make_step_once(scheduler, model_fn, to_device(state.timesteps, sample.device), draw, clip_each_step)
-    frames = movie_frames(n - start_from, capture_every, init)
-    sample, _, frames = chain_segment(step_once, sample, state, frames, start_from, n - start_from, n, start_from,
-                                      capture_every)
-    return sample, frames
+
+class Chain:
+    """The one runner of a chain over a state that carries its inference
+    timesteps (``set_timesteps``), run whole or in segments: the prologue,
+    the dispatch between SDE-VE's predictor-corrector steps and the generic
+    step, the movie's frames and the timestep or σ table on the device.
+    ``sample_chain`` runs it eagerly; ``pipelines/segments.py`` captures its
+    segments as CUDA graphs. SDE-VE runs from step 0 whatever
+    ``start_from`` (its engine ignores it, as the JAX package's does); the
+    others from ``start_from``. The chain runs every entry of the state's
+    timestep table: PNDM's holds more entries than the steps asked for (its
+    Runge-Kutta warm-up) and the multistep solvers' may hold fewer."""
+
+    def __init__(self, scheduler, state, device: torch.device, start_from: int = 0,
+                 clip_each_step: Optional[float] = None, capture_every: Optional[int] = None):
+        self.scheduler = scheduler
+        self.state = state
+        self.sde_ve = scheduler.hf_class_name == "ScoreSdeVeScheduler"
+        self.n = len(state.timesteps)
+        self.chain_start = 0 if self.sde_ve else start_from
+        self.clip_each_step = clip_each_step
+        self.capture_every = capture_every
+        # SDE-VE's model sees σ_t; the others the timestep
+        self.table = to_device(state.sigmas if self.sde_ve else state.timesteps, device)
+
+    def spans(self, segment_steps: Optional[int] = None) -> List[Tuple[int, int]]:
+        """(start, length) of each segment of at most ``segment_steps``
+        (None: the whole chain), the last one shorter when ``segment_steps``
+        does not divide the chain."""
+        size = segment_steps or max(1, self.n - self.chain_start)
+        return [(s, min(size, self.n - s)) for s in range(self.chain_start, self.n, size)]
+
+    def start(self, init: torch.Tensor) -> Carry:
+        """The prologue: init-noise scaling and the scheduler's
+        begin-sampling hook, and the movie's zeroed frames."""
+        frames = movie_frames(self.n - self.chain_start, self.capture_every, init)
+        if self.sde_ve:
+            return init * torch.as_tensor(self.scheduler.init_noise_sigma, dtype=init.dtype), None, self.state, frames
+        sample, state = chain_prologue(self.scheduler, self.state, init)
+        return sample, None, state, frames
+
+    def run(self, carry: Carry, model_fn: ModelFn, draw: Optional[Callable[[int], torch.Tensor]], seg_start: int,
+            seg_len: int) -> Carry:
+        """Steps ``[seg_start, seg_start + seg_len)`` on the carry."""
+        sample, mean, state, frames = carry
+        if self.sde_ve:
+            if draw is None:
+                raise ValueError("an SDE-VE chain draws noise: it needs a generator or a noise_source")
+            return sde_ve_segment(self.scheduler, model_fn, self.table, draw, sample, mean, state, frames,
+                                  seg_start, seg_len, self.n, self.capture_every)
+        step_once = make_step_once(self.scheduler, model_fn, self.table, draw, self.clip_each_step)
+        sample, state, frames = chain_segment(step_once, sample, state, frames, seg_start, seg_len, self.n,
+                                              self.chain_start, self.capture_every)
+        return sample, None, state, frames
+
+    def result(self, carry: Carry) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the chain's sample, or SDE-VE's last mean; the movie or None)."""
+        sample, mean, _, frames = carry
+        return (mean if self.sde_ve else sample), frames
+
+    def run_eager(self, init: torch.Tensor, model_fn: ModelFn, draw: Optional[Callable[[int], torch.Tensor]],
+                  segment_steps: Optional[int] = None):
+        """The chain from ``init``, whole or in segments of ``segment_steps``
+        one after another (the same operations, so the same bits)."""
+        carry = self.start(init)
+        for s, length in self.spans(segment_steps):
+            carry = self.run(carry, model_fn, draw, s, length)
+        return self.result(carry)
 
 
 def sde_ve_segment(scheduler, model_fn: ModelFn, sigmas: torch.Tensor, draw: Callable[[int], torch.Tensor],
@@ -159,27 +205,6 @@ def sde_ve_segment(scheduler, model_fn: ModelFn, sigmas: torch.Tensor, draw: Cal
     return sample, last_mean, state, frames
 
 
-def sample_sde_ve(
-    scheduler,
-    state,
-    model_fn: ModelFn,
-    init: torch.Tensor,
-    generator: Optional[torch.Generator] = None,
-    noise_source: Optional[NoiseSource] = None,
-    capture_every: Optional[int] = None,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The SDE-VE predictor-corrector loop: per timestep, ``correct_steps``
-    Langevin corrector steps, then one predictor step; the model sees σ_t.
-    Returns the last step's ``sample_mean`` and the movie of the means (the
-    last frame the result), or None. The chain is one ``sde_ve_segment``."""
-    n = len(state.timesteps)
-    sample = init * torch.as_tensor(scheduler.init_noise_sigma, dtype=init.dtype)
-    frames = movie_frames(n, capture_every, init)
-    _, mean, _, frames = sde_ve_segment(scheduler, model_fn, to_device(state.sigmas, sample.device),
-                                        noise_drawer(init, generator, noise_source), sample, None, state, frames,
-                                        0, n, n, capture_every)
-    return mean, frames
-
 
 def sample_chain(
     scheduler,
@@ -191,19 +216,39 @@ def sample_chain(
     start_from: int = 0,
     clip_each_step: Optional[float] = None,
     capture_every: Optional[int] = None,
+    segment_steps: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The chain of any scheduler: SDE-VE and Karras-VE run their own
-    engines (SDE-VE ignores ``start_from`` and ``clip_each_step``, Karras-VE
-    too), the rest ``sample_loop``. Returns (sample, movie) before the
-    mapping to images (``chain_images``)."""
-    name = scheduler.hf_class_name
-    if name == "KarrasVeScheduler":
+    """The chain of any scheduler from ``init``; returns (sample, movie)
+    before the mapping to images (``chain_images``). ``state`` must already
+    carry inference timesteps (``set_timesteps``). ``movie`` is
+    ``[n_frames, *init.shape]``: every ``capture_every``-th sample after a
+    step, the final sample in the last frame; or None. Karras-VE runs its
+    own engine; the rest are ``Chain.run_eager``, in segments of
+    ``segment_steps`` when given (SDE-VE ignores ``start_from`` and
+    ``clip_each_step``, Karras-VE too, and returns its last step's mean)."""
+    if scheduler.hf_class_name == "KarrasVeScheduler":
         return sample_karras_ve(scheduler, state, model_fn, init, noise_drawer(init, generator, noise_source),
                                 capture_every=capture_every)
-    if name == "ScoreSdeVeScheduler":
-        return sample_sde_ve(scheduler, state, model_fn, init, generator, noise_source, capture_every)
-    return sample_loop(scheduler, state, model_fn, init, generator, noise_source, start_from, clip_each_step,
-                       capture_every)
+    draw = None if generator is None and noise_source is None else noise_drawer(init, generator, noise_source)
+    return Chain(scheduler, state, init.device, start_from, clip_each_step, capture_every).run_eager(
+        init, model_fn, draw, segment_steps)
+
+
+def sample_loop(scheduler, state, model_fn: ModelFn, init: torch.Tensor, generator: Optional[torch.Generator] = None,
+                noise_source: Optional[NoiseSource] = None, start_from: int = 0,
+                clip_each_step: Optional[float] = None, capture_every: Optional[int] = None):
+    """The generic reverse chain (the JAX package's ``sample_loop``): ``sample_chain``."""
+    return sample_chain(scheduler, state, model_fn, init, generator, noise_source, start_from, clip_each_step,
+                        capture_every)
+
+
+def sample_sde_ve(scheduler, state, model_fn: ModelFn, init: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  noise_source: Optional[NoiseSource] = None, capture_every: Optional[int] = None):
+    """The SDE-VE predictor-corrector chain (the JAX package's
+    ``sample_sde_ve``): per timestep, ``correct_steps`` Langevin corrector
+    steps, then one predictor step; the model sees σ_t. Returns the last
+    step's ``sample_mean`` and the movie of the means, or None."""
+    return sample_chain(scheduler, state, model_fn, init, generator, noise_source, capture_every=capture_every)
 
 
 def chain_images(scheduler, sample: torch.Tensor) -> torch.Tensor:

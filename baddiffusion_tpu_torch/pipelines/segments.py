@@ -3,11 +3,12 @@ package's ``DiffusionPipeline._segment_fns`` / ``_run_segmented``).
 
 The JAX package compiles one N-step program and re-invokes it with the
 carry (sample, scheduler state, key, frames) left on the device. Here
-``Chain`` holds what every segment of a chain shares (the scheduler's state
-after ``set_timesteps``, the timestep or σ table on the device, the bounds
-of the movie) and runs a segment with ``sampler.chain_segment`` or
-``sampler.sde_ve_segment``: on the CPU the segments run eagerly one after
-another, the same operations as the whole chain, so the same bits.
+``sampler.Chain`` holds what every segment of a chain shares (the
+scheduler's state after ``set_timesteps``, the timestep or σ table on the
+device, the bounds of the movie) and runs a segment with
+``sampler.chain_segment`` or ``sampler.sde_ve_segment``: on the CPU the
+segments run eagerly one after another (``sample_chain``), the same
+operations as the whole chain, so the same bits.
 
 On the card a segment is a CUDA graph (``GraphedChain``): the chain's
 segments are captured once, one graph per segment start, into one memory
@@ -27,78 +28,25 @@ from __future__ import annotations
 
 import copy
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List
 
 import torch
 
 from baddiffusion_tpu_torch import ops
-from baddiffusion_tpu_torch.pipelines.sampler import (
-    chain_prologue,
-    chain_segment,
-    make_step_once,
-    movie_frames,
-    sde_ve_segment,
-    to_device,
-)
+from baddiffusion_tpu_torch.pipelines.sampler import Chain
 
-Carry = Tuple[torch.Tensor, Optional[torch.Tensor], object, Optional[torch.Tensor]]  # sample, last_mean, state, frames
+_capture_s: List[float] = []  # the seconds each chain captured in this process took, in order
 
 
-class Chain:
-    """The parts of a chain of ``n`` inference steps that its segments
-    share. SDE-VE segments from step 0 whatever ``start_from`` (its engine
-    ignores it, as the JAX package's does); the others from ``start_from``.
-    The chain runs every entry of the scheduler's timestep table, as the
-    whole chain does: PNDM's table holds more entries than ``n`` (its
-    Runge-Kutta warm-up) and the multistep solvers' may hold fewer, where the
-    JAX package's segments stop at ``n`` whatever the table."""
+def captures() -> List[float]:
+    """The capture time of every ``GraphedChain`` captured since the last
+    ``reset_captures``, in order: their count is the count of warm-up
+    forwards the captures ran."""
+    return list(_capture_s)
 
-    def __init__(self, scheduler, n: int, start_from: int, clip_each_step: Optional[float],
-                 capture_every: Optional[int], device: torch.device):
-        self.scheduler = scheduler
-        self.state = scheduler.set_timesteps(scheduler.create_state(), n)
-        self.sde_ve = scheduler.hf_class_name == "ScoreSdeVeScheduler"
-        self.n = len(self.state.timesteps)
-        self.chain_start = 0 if self.sde_ve else start_from
-        self.clip_each_step = clip_each_step
-        self.capture_every = capture_every
-        # SDE-VE's model sees σ_t; the others the timestep
-        self.table = to_device(self.state.sigmas if self.sde_ve else self.state.timesteps, device)
 
-    def spans(self, segment_steps: int) -> List[Tuple[int, int]]:
-        """(start, length) of each segment, the last one shorter when
-        ``segment_steps`` does not divide the chain."""
-        return [(s, min(segment_steps, self.n - s)) for s in range(self.chain_start, self.n, segment_steps)]
-
-    def start(self, init: torch.Tensor) -> Carry:
-        """The chain's prologue: init-noise scaling and the scheduler's
-        begin-sampling hook, and the movie's zeroed frames."""
-        frames = movie_frames(self.n - self.chain_start, self.capture_every, init)
-        if self.sde_ve:
-            return init * torch.as_tensor(self.scheduler.init_noise_sigma, dtype=init.dtype), None, self.state, frames
-        sample, state = chain_prologue(self.scheduler, self.state, init)
-        return sample, None, state, frames
-
-    def run(self, carry: Carry, model_fn, draw: Callable[[int], torch.Tensor], seg_start: int, seg_len: int) -> Carry:
-        sample, mean, state, frames = carry
-        if self.sde_ve:
-            return sde_ve_segment(self.scheduler, model_fn, self.table, draw, sample, mean, state, frames,
-                                  seg_start, seg_len, self.n, self.capture_every)
-        step_once = make_step_once(self.scheduler, model_fn, self.table, draw, self.clip_each_step)
-        sample, state, frames = chain_segment(step_once, sample, state, frames, seg_start, seg_len, self.n,
-                                              self.chain_start, self.capture_every)
-        return sample, None, state, frames
-
-    def result(self, carry: Carry) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(the chain's sample, or SDE-VE's last mean; the movie or None)."""
-        sample, mean, _, frames = carry
-        return (mean if self.sde_ve else sample), frames
-
-    def run_eager(self, init: torch.Tensor, model_fn, draw, segment_steps: int):
-        carry = self.start(init)
-        for s, length in self.spans(segment_steps):
-            carry = self.run(carry, model_fn, draw, s, length)
-        return self.result(carry)
+def reset_captures() -> None:
+    _capture_s.clear()
 
 
 def _counts_delta(before: dict, after: dict) -> dict:
@@ -161,6 +109,7 @@ class GraphedChain:
         self.carry = carry
         torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
+        _capture_s.append(self.capture_s)
 
     def __call__(self, init: torch.Tensor, generator: torch.Generator):
         self.static_init.copy_(init)

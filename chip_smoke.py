@@ -68,8 +68,10 @@
    same through ``save_checkpoint`` (with its HF export). Printed: the
    loop's ms a step and samples/s beside phase 4's bare step, a grid's
    sampling time, a sync save's and the HF export's time, a save's parts
-   (the host copy to pinned memory as the save makes it, and to pageable
-   memory; ``write_safetensors`` from the host copy), the async saves'
+   (the host copy to pinned memory as the save makes it, reusing the
+   pinned blocks that PyTorch's host allocator kept from the save before;
+   into fresh pinned memory, that cache emptied; and to pageable memory;
+   ``write_safetensors`` from the host copy), the async saves'
    return times, the phase's peak memory.
 
 7. The sampler zoo (run after phase 3): the factory's 13 scheduler names
@@ -194,7 +196,9 @@
    the native PNG codec's counters show that it wrote the dump and the
    chunks and read them back. (d) The ms a chain step eager and replayed at
    B=16 and 128, the capture time a chain, a profiled replay (device ms, idle
-   share, K1 and K3 by kernel name). Launch counts over (a)+(b)+(d) and over
+   share, K1 and K3 by kernel name), and one more replayed chain whose K1
+   and K3 kernels the profiler counts, against 65 and 6 a forward and
+   against the launch counters over the same call. Launch counts over (a)+(b)+(d) and over
    (c): 65 K1 and 6 K3 a UNet forward, each capture's warm-up forward among
    them (the counters add a graph's captured launches at each replay).
 
@@ -383,6 +387,32 @@ def device_ms(fn, reps: int = 20) -> float:
 def top_host_ops(host: dict, per: float, n: int = 8) -> str:
     top = sorted(host.items(), key=lambda kv: -kv[1])[:n]
     return ", ".join(f"{name} {ms / per:.3f} ms" for name, ms in top)
+
+
+def empty_host_cache() -> None:
+    """Release the pinned host blocks that PyTorch's caching host allocator
+    keeps (``torch.accelerator.empty_host_cache`` where this PyTorch has it)."""
+    release = getattr(torch.accelerator, "empty_host_cache", None) or torch._C._host_emptyCache
+    release()
+
+
+def profiled_kernel_counts(fn) -> tuple:
+    """({kernel name: instances} that torch.profiler recorded on the card
+    over one call of ``fn`` and a synchronise, the launch counters over that
+    call, the chains captured in it). A profiler session at times records no
+    device event at all (``utils/profiling.py``): the call is then made
+    again, at most ``PROFILE_ATTEMPTS`` times."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(profiling.PROFILE_ATTEMPTS):
+        first = len(segments.captures())
+        ops.reset_launch_counts()
+        with torch.profiler.profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+        if seen:
+            return seen, ops.launch_counts(), len(segments.captures()) - first
+    check(False, f"{profiling.PROFILE_ATTEMPTS} profiler sessions in a row recorded no device event")
 
 
 def breakdown(kernels: dict, per: float = 1.0) -> str:
@@ -1314,7 +1344,15 @@ def phase_trainer(dev, smi: str, bare_ms: float) -> tuple:
               f"(save_pretrained) {export_s:.2f} s; on {smi}")
 
         # where a save's time goes: the copy to the host (pinned, as the save
-        # makes it, and pageable), and the file's write from the host copy
+        # makes it, and pageable), and the file's write from the host copy.
+        # The pinned copy takes blocks that the caching host allocator kept
+        # from the save before it; with that cache emptied it page-locks
+        # fresh memory, as a process's first save does
+        empty_host_cache()
+        t0 = time.perf_counter()
+        flat = checkpoint_module._host_copy(state2)
+        fresh_s = time.perf_counter() - t0
+        del flat
         t0 = time.perf_counter()
         flat = checkpoint_module._host_copy(state2)
         copy_s = time.perf_counter() - t0
@@ -1325,7 +1363,8 @@ def phase_trainer(dev, smi: str, bare_ms: float) -> tuple:
         checkpoint_module.write_safetensors(os.path.join(run_dir, "timed.safetensors"), flat)
         write_s = time.perf_counter() - t0
         del flat, pageable
-        print(f"   a save's parts: host copy {copy_s:.3f} s pinned ({pageable_s:.3f} s to pageable memory), "
+        print(f"   a save's parts: host copy {copy_s:.3f} s pinned, blocks reused ({fresh_s:.3f} s into fresh pinned "
+              f"memory, {pageable_s:.3f} s to pageable memory), "
               f"write_safetensors {write_s:.3f} s; on {smi}")
 
         # async: a train step runs before the write is finished; the read-back holds the saved bits
@@ -2494,30 +2533,6 @@ SEG_STEPS, SEG_ZOO_STEPS, SEG_ZOO_SEGMENT, SEG_CLI = 100, 20, 7, 25
 SEG_ZOO = ("DDIM-SCHED", "DPM_SOLVER_PP_O2-SCHED", "UNIPC-SCHED", "PNDM-SCHED", "SCORE-SDE-VE-SCHED")
 
 
-class CaptureCounter:
-    """Counts the chains ``segments.GraphedChain`` captures while installed:
-    each capture runs one warm-up UNet forward before its graphs (a real
-    launch of every kernel of a forward)."""
-
-    def __init__(self):
-        self.captures, self.capture_s = 0, []
-        self.init = segments.GraphedChain.__init__
-
-    def __enter__(self):
-        counter = self
-
-        def init(runner, *args, **kwargs):
-            counter.init(runner, *args, **kwargs)
-            counter.captures += 1
-            counter.capture_s.append(runner.capture_s)
-
-        segments.GraphedChain.__init__ = init
-        return self
-
-    def __exit__(self, *exc):
-        segments.GraphedChain.__init__ = self.init
-
-
 def check_graph_equal(label: str, got, want, gen_got, gen_want) -> None:
     """A segmented call's outputs and its caller's generator bitwise the eager call's."""
     check(torch.equal(got.sample, want.sample) and torch.equal(got.images, want.images),
@@ -2559,62 +2574,63 @@ def phase_segments(dev, smi: str) -> list:
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     times = {}
-    with CaptureCounter() as captured:
-        # (a) 100 steps at B=128 from noise + trigger: segments of 25 and of 30 (a remainder segment)
-        kw = dict(init=init, num_inference_steps=SEG_STEPS)
-        eager, gen_e, times["eager_128"] = call(pipe, None, 1, SEG_STEPS, **kw)
-        for seg in (25, 30):
-            got, gen_g, dt = call(pipe, seg, 1, SEG_STEPS, **kw)
-            times.setdefault(f"first_{BATCH}", dt)  # segments of 25: the call that captures
-            check_graph_equal(f"segments of {seg}, B={BATCH}", got, eager, gen_g, gen_e)
-        # another generator replays the cached graphs
-        eager2, gen_e2, _ = call(pipe, None, 2, SEG_STEPS, **kw)
-        got, gen_g2, times["replay_128"] = call(pipe, 25, 2, SEG_STEPS, **kw)
-        check_graph_equal(f"segments of 25, B={BATCH}, a second generator", got, eager2, gen_g2, gen_e2)
-        check(not torch.equal(eager.sample, eager2.sample), "two generators gave the same chain")
-        for extra in (dict(save_every_step=True, capture_every=3), dict(start_from=4)):
-            n_fwd = SEG_STEPS - extra.get("start_from", 0)
-            want, gen_w, _ = call(pipe, None, 3, n_fwd, **kw, **extra)
-            got, gen_g, _ = call(pipe, 25, 3, n_fwd, **kw, **extra)
-            check_graph_equal(f"segments of 25, B={BATCH}, {extra}", got, want, gen_g, gen_w)
-            if "capture_every" in extra:
-                check(got.movie.shape == (34, BATCH, 32, 32, 3), f"movie shape {tuple(got.movie.shape)}")
-        print(f"   (a) {SEG_STEPS}-step bf16 DDPM at B={BATCH} from noise + BOX_14: segments of 25 and of 30 "
-              f"bitwise the eager chain (sample, images, the generator's state after); a second generator "
-              f"replays the cached graphs bitwise its eager chain; capture_every=3 (34 frames) and "
-              f"start_from=4 bitwise")
+    segments.reset_captures()
+    # (a) 100 steps at B=128 from noise + trigger: segments of 25 and of 30 (a remainder segment)
+    kw = dict(init=init, num_inference_steps=SEG_STEPS)
+    eager, gen_e, times["eager_128"] = call(pipe, None, 1, SEG_STEPS, **kw)
+    for seg in (25, 30):
+        got, gen_g, dt = call(pipe, seg, 1, SEG_STEPS, **kw)
+        times.setdefault(f"first_{BATCH}", dt)  # segments of 25: the call that captures
+        check_graph_equal(f"segments of {seg}, B={BATCH}", got, eager, gen_g, gen_e)
+    # another generator replays the cached graphs
+    eager2, gen_e2, _ = call(pipe, None, 2, SEG_STEPS, **kw)
+    got, gen_g2, times["replay_128"] = call(pipe, 25, 2, SEG_STEPS, **kw)
+    check_graph_equal(f"segments of 25, B={BATCH}, a second generator", got, eager2, gen_g2, gen_e2)
+    check(not torch.equal(eager.sample, eager2.sample), "two generators gave the same chain")
+    for extra in (dict(save_every_step=True, capture_every=3), dict(start_from=4)):
+        n_fwd = SEG_STEPS - extra.get("start_from", 0)
+        want, gen_w, _ = call(pipe, None, 3, n_fwd, **kw, **extra)
+        got, gen_g, _ = call(pipe, 25, 3, n_fwd, **kw, **extra)
+        check_graph_equal(f"segments of 25, B={BATCH}, {extra}", got, want, gen_g, gen_w)
+        if "capture_every" in extra:
+            check(got.movie.shape == (34, BATCH, 32, 32, 3), f"movie shape {tuple(got.movie.shape)}")
+    print(f"   (a) {SEG_STEPS}-step bf16 DDPM at B={BATCH} from noise + BOX_14: segments of 25 and of 30 "
+          f"bitwise the eager chain (sample, images, the generator's state after); a second generator "
+          f"replays the cached graphs bitwise its eager chain; capture_every=3 (34 frames) and "
+          f"start_from=4 bitwise")
 
-        # (b) five schedulers at B=16, 20 steps, segments of 7
-        zoo_ms = []
-        for name in SEG_ZOO:
-            scheduler, kind = zoo_scheduler(name)
-            zpipe = factory._make_get_pipeline(unet, kind, factory.DiffuserModelSched.CLIP_SAMPLE_DEFAULT)(
-                scheduler, compute_dtype=torch.bfloat16)
-            zkw = dict(init=init[:SAMPLE_BATCH], num_inference_steps=SEG_ZOO_STEPS)
-            n_fwd = zoo_forwards(scheduler, kind, SEG_ZOO_STEPS)[1]
-            want, gen_w, _ = call(zpipe, None, 4, n_fwd, **zkw)
-            got, gen_g, _ = call(zpipe, SEG_ZOO_SEGMENT, 4, n_fwd, **zkw)
-            check_graph_equal(f"{name} in segments of {SEG_ZOO_SEGMENT}", got, want, gen_g, gen_w)
-            check(bool(torch.isfinite(got.sample).all()), f"{name}: sample not finite")
-            zoo_ms.append(f"{name} {len(zpipe._graphs)} chain(s), {n_fwd} forwards")
-        print(f"   (b) bitwise the eager chains at B={SAMPLE_BATCH}, {SEG_ZOO_STEPS} steps, segments of "
-              f"{SEG_ZOO_SEGMENT}: {'; '.join(zoo_ms)}")
+    # (b) five schedulers at B=16, 20 steps, segments of 7
+    zoo_ms = []
+    for name in SEG_ZOO:
+        scheduler, kind = zoo_scheduler(name)
+        zpipe = factory._make_get_pipeline(unet, kind, factory.DiffuserModelSched.CLIP_SAMPLE_DEFAULT)(
+            scheduler, compute_dtype=torch.bfloat16)
+        zkw = dict(init=init[:SAMPLE_BATCH], num_inference_steps=SEG_ZOO_STEPS)
+        n_fwd = zoo_forwards(scheduler, kind, SEG_ZOO_STEPS)[1]
+        want, gen_w, _ = call(zpipe, None, 4, n_fwd, **zkw)
+        got, gen_g, _ = call(zpipe, SEG_ZOO_SEGMENT, 4, n_fwd, **zkw)
+        check_graph_equal(f"{name} in segments of {SEG_ZOO_SEGMENT}", got, want, gen_g, gen_w)
+        check(bool(torch.isfinite(got.sample).all()), f"{name}: sample not finite")
+        zoo_ms.append(f"{name} {len(zpipe._graphs)} chain(s), {n_fwd} forwards")
+    print(f"   (b) bitwise the eager chains at B={SAMPLE_BATCH}, {SEG_ZOO_STEPS} steps, segments of "
+          f"{SEG_ZOO_SEGMENT}: {'; '.join(zoo_ms)}")
 
-        # (d) ms a chain step, eager and replayed, at B=16 and B=128
-        kw16 = dict(init=init[:SAMPLE_BATCH], num_inference_steps=SEG_STEPS)
-        _, _, times["eager_16"] = call(pipe, None, 5, SEG_STEPS, **kw16)
-        _, _, times["first_16"] = call(pipe, 25, 5, SEG_STEPS, **kw16)
-        _, _, times["replay_16"] = call(pipe, 25, 6, SEG_STEPS, **kw16)
+    # (d) ms a chain step, eager and replayed, at B=16 and B=128
+    kw16 = dict(init=init[:SAMPLE_BATCH], num_inference_steps=SEG_STEPS)
+    _, _, times["eager_16"] = call(pipe, None, 5, SEG_STEPS, **kw16)
+    _, _, times["first_16"] = call(pipe, 25, 5, SEG_STEPS, **kw16)
+    _, _, times["replay_16"] = call(pipe, 25, 6, SEG_STEPS, **kw16)
     counts = ops.launch_counts()
-    want_fwd = forwards[0] + captured.captures
+    captured = segments.captures()
+    want_fwd = forwards[0] + len(captured)
     want = {"groupnorm_silu": GN_PER_FORWARD * want_fwd, "groupnorm_silu_backward": 0,
             "attention": ATTN_PER_FORWARD * want_fwd}
     for b in (SAMPLE_BATCH, BATCH):
         print(f"   (d) B={b}, {SEG_STEPS}-step DDPM: eager {times[f'eager_{b}'] / SEG_STEPS * 1e3:.3f} ms/step, graphs "
               f"replayed {times[f'replay_{b}'] / SEG_STEPS * 1e3:.3f} ms/step (segments of 25), first call with "
               f"its capture {times[f'first_{b}'] / SEG_STEPS * 1e3:.3f} ms/step; on {smi}")
-    print(f"   (d) {captured.captures} chains captured, {statistics.median(captured.capture_s):.2f} s a capture "
-          f"(median; max {max(captured.capture_s):.2f} s: warm-up forward, capture, synchronise)")
+    print(f"   (d) {len(captured)} chains captured, {statistics.median(captured):.2f} s a capture "
+          f"(median; max {max(captured):.2f} s: warm-up forward, capture, synchronise)")
     pipe.segment_steps = 25
     gen = torch.Generator(dev).manual_seed(7)
     wall, dev_ms, kern, _ = device_profile(lambda: pipe(init=init[:SAMPLE_BATCH], generator=gen,
@@ -2628,8 +2644,21 @@ def phase_segments(dev, smi: str) -> list:
           f"ms/step, {k3[:1]} {by_class['K3'] / SEG_STEPS:.4f} ms/step")
     print(f"     device time per step: {breakdown(kern, SEG_STEPS)}")
     check(bool(k1) and bool(k3), f"the profiler showed no K1/K3 kernels of the graphs: {sorted(kern)[:10]}")
+    # one more replayed chain: the K1 and K3 kernels the profiler saw run, against the counters over the same call
+    seen, replayed, captures = profiled_kernel_counts(lambda: pipe(init=init[:SAMPLE_BATCH], generator=gen,
+                                                                   num_inference_steps=SEG_STEPS, output_type="pt"))
+    fwd = SEG_STEPS + captures  # and the warm-up forward of a capture, were there one
+    ran = {"K1": sum(n for k, n in seen.items() if profiling.kernel_class(k) == "K1"),
+           "K3": sum(n for k, n in seen.items() if profiling.kernel_class(k) == "K3")}
+    check(ran == {"K1": GN_PER_FORWARD * fwd, "K3": ATTN_PER_FORWARD * fwd}
+          and replayed["groupnorm_silu"] == ran["K1"] and replayed["attention"] == ran["K3"],
+          f"a replayed {SEG_STEPS}-step chain: the profiler saw {ran}, the counters counted {replayed}, "
+          f"{fwd} forwards want {GN_PER_FORWARD * fwd} K1 and {ATTN_PER_FORWARD * fwd} K3")
+    print(f"   (d) a replayed {SEG_STEPS}-step chain at B={SAMPLE_BATCH}, profiled: the profiler saw {ran['K1']} K1 "
+          f"and {ran['K3']} K3 kernels run ({fwd} forwards x {GN_PER_FORWARD} and x {ATTN_PER_FORWARD}), the "
+          f"launch counters counted {replayed['groupnorm_silu']} and {replayed['attention']}")
     print(f"   phase 12 (a), (b), (d) took {time.perf_counter() - phase_t0:.1f} s; on {smi}")
-    return [("segment mode", f"{want_fwd} UNet forwards ({captured.captures} capture warm-ups)", counts, want)]
+    return [("segment mode", f"{want_fwd} UNet forwards ({len(captured)} capture warm-ups)", counts, want)]
 
 
 def segment_measure(root: str, run: str, smi: str) -> list:
@@ -2657,10 +2686,11 @@ def segment_measure(root: str, run: str, smi: str) -> list:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        with CaptureCounter() as captured:
-            cli.main(["--mode", "measure", "--ckpt", run, "--sample_ep", "0", "--sample_segment", str(SEG_CLI),
-                      "--gpu", "0"])
+        segments.reset_captures()
+        cli.main(["--mode", "measure", "--ckpt", run, "--sample_ep", "0", "--sample_segment", str(SEG_CLI),
+                  "--gpu", "0"])
         wall = time.perf_counter() - t0
+        captured = len(segments.captures())
         torch.cuda.synchronize()
         counts = ops.launch_counts()
     finally:
@@ -2680,9 +2710,9 @@ def segment_measure(root: str, run: str, smi: str) -> list:
           f"images, {CLI_STEPS} DDIM steps in segments of {SEG_CLI}, f32): {len(after)} PNGs byte for byte and "
           f"score.json {now} equal to the unsegmented measure's; the native PNG codec encoded {codec['encoded']} "
           f"batches (the real-image dump, written again, and the chunks) and decoded {codec['decoded']} (the "
-          f"read-back); {captured.captures} chain captured; {wall:.1f} s; on {smi}")
-    want_fwd = forwards + captured.captures
-    return [("segment-mode measure", f"{want_fwd} UNet forwards ({captured.captures} capture warm-up)", counts,
+          f"read-back); {captured} chain captured; {wall:.1f} s; on {smi}")
+    want_fwd = forwards + captured
+    return [("segment-mode measure", f"{want_fwd} UNet forwards ({captured} capture warm-up)", counts,
              {"groupnorm_silu": GN_PER_FORWARD * want_fwd, "groupnorm_silu_backward": 0,
               "attention": ATTN_PER_FORWARD * want_fwd})]
 

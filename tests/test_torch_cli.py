@@ -38,7 +38,7 @@ from baddiffusion_tpu.schedulers import ScoreSdeVeScheduler as JaxScoreSdeVeSche
 from baddiffusion_tpu_torch import cli, factory
 from baddiffusion_tpu_torch.config import device_from_gpu, setup, shares_card
 from baddiffusion_tpu_torch.parallel import make_mesh
-from baddiffusion_tpu_torch.pipelines import segments
+from baddiffusion_tpu_torch.pipelines import sampler
 
 
 @pytest.fixture(autouse=True)
@@ -267,9 +267,14 @@ def test_sample_segment_runs_in_every_mode(tmp_path, monkeypatch, tiny_arch):
     small_proxy(monkeypatch)
     monkeypatch.chdir(tmp_path)
     segmented = []
-    real = segments.Chain.run_eager
-    monkeypatch.setattr(segments.Chain, "run_eager",
-                        lambda self, init, model, draw, seg: segmented.append(seg) or real(self, init, model, draw, seg))
+    real = sampler.Chain.run_eager
+
+    def run_eager(self, init, model_fn, draw, segment_steps=None):
+        if segment_steps:
+            segmented.append(segment_steps)
+        return real(self, init, model_fn, draw, segment_steps)
+
+    monkeypatch.setattr(sampler.Chain, "run_eager", run_eager)
     cli.main(["--mode", "train+measure", "--dataset", "FAKE", "--batch", "64", "--epoch", "1", "--fake_size", "64",
               "--measure_sample_n", "2", "--eval_max_batch", "2", "--sampling_steps", "3", "--measure_steps", "3",
               "--sample_segment", "2", "--result", str(tmp_path), "-o", "--gpu", "cpu"])

@@ -768,17 +768,22 @@ def test_world_of_one_nccl_rank_is_the_plain_step(dev, tmp_path, monkeypatch):
     assert all(torch.equal(state.params[k], v) for k, v in want_params.items())
 
 
+def _launch_two_ranks(role, work):
+    """Two processes of this file on cuda:0 (``--gpu 0,0``: gloo) in ``role``."""
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.dirname(os.path.abspath(__file__)))}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), role, str(r), str(work)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+
+
 def test_two_ranks_sharing_the_card_match_one_rank(dev, tmp_path):
     """Two ranks on cuda:0 (``--gpu 0,0``: gloo) take 4 of the 8 rows each:
     they agree bitwise, and match one rank on the card (loss and grad norm
     rtol 1e-5; parameters within 2·lr a step, all but 1e-3 within 1e-6)."""
     state, step, _ = _small_step_world(dev)
     state, want = _small_steps(state, step, None, dev)
-    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.dirname(os.path.abspath(__file__)))}
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(tmp_path)], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    outs = [p.communicate(timeout=300)[0] for p in procs]
-    assert all(p.returncode == 0 for p in procs), outs
+    _launch_two_ranks("train", tmp_path)
     got = [torch.load(str(tmp_path / f"rank{r}.pt")) for r in range(2)]
     assert got[0]["metrics"] == got[1]["metrics"]
     assert all(torch.equal(got[0]["params"][k], got[1]["params"][k]) for k in got[0]["params"])
@@ -787,8 +792,40 @@ def test_two_ranks_sharing_the_card_match_one_rank(dev, tmp_path):
     assert diff.max() <= 2 * 2 * 1e-3 + 1e-6 and (diff > 1e-6).double().mean() <= 1e-3
 
 
-def _two_rank_main(rank, work):
-    """One of two ranks on cuda:0 over gloo: the small steps on its rows."""
+def test_segment_graphs_on_a_mesh_replay_each_batch_s_eager_chain(dev, tmp_path):
+    """On two ranks sharing the card, batches of 8 and then 7 (both 4 rows
+    a rank once padded) in segments: each call's images and its caller's
+    generator bitwise its eager chain's. Each rank's graphs draw the whole
+    batch's noise and keep its rows, so the two batches capture apart."""
+    _launch_two_ranks("segments", tmp_path)
+    got = [torch.load(str(tmp_path / f"segments-rank{r}.pt")) for r in range(2)]
+    assert got[0]["graphs"] == got[1]["graphs"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got[0]["images"], got[1]["images"]))
+
+
+def _two_rank_segments(dev, work, rank):
+    """One rank's segmented DDPM chains on a mesh of two, each against the eager chain."""
+    from baddiffusion_tpu_torch.parallel import make_mesh
+
+    pipe, _ = _small_pipeline("DDPM-SCHED")
+    pipe.mesh = make_mesh(dev)
+    images = []
+    for batch in (8, 7):
+        gens = [torch.Generator(dev).manual_seed(batch) for _ in range(2)]
+        pipe.segment_steps = None
+        want = pipe(batch_size=batch, generator=gens[0], num_inference_steps=6, output_type="pt")
+        pipe.segment_steps = 2
+        got = pipe(batch_size=batch, generator=gens[1], num_inference_steps=6, output_type="pt")
+        assert got.images.shape[0] == batch
+        assert torch.equal(got.sample, want.sample) and torch.equal(got.images, want.images), batch
+        assert torch.equal(gens[0].get_state(), gens[1].get_state()), batch
+        images.append(got.images.cpu())
+    torch.save({"graphs": len(pipe._graphs), "images": images}, os.path.join(work, f"segments-rank{rank}.pt"))
+
+
+def _two_rank_main(role, rank, work):
+    """One of two ranks on cuda:0 over gloo: ``train`` the small steps on its
+    rows, ``segments`` the segmented chains on a mesh."""
     from baddiffusion_tpu_torch.config import shares_card
     from baddiffusion_tpu_torch.parallel import distributed, make_mesh
 
@@ -796,15 +833,18 @@ def _two_rank_main(rank, work):
     torch.backends.cuda.matmul.allow_tf32 = False
     os.environ.update(WORLD_SIZE="2", LOCAL_RANK=str(rank))
     backend = distributed.initialize("cuda:0", shares_card("0,0"), store=torch.distributed.FileStore(
-        os.path.join(work, "store"), 2), rank=rank, world_size=2, timeout_s=120)
+        os.path.join(work, f"store-{role}"), 2), rank=rank, world_size=2, timeout_s=120)
     assert backend == "gloo", backend
     dev = torch.device("cuda:0")
-    state, step, layout = _small_step_world(dev, make_mesh(dev))
-    state, metrics = _small_steps(state, step, layout, dev)
-    torch.save({"metrics": metrics, "params": {k: p.detach().cpu() for k, p in state.params.items()}},
-               os.path.join(work, f"rank{rank}.pt"))
+    if role == "segments":
+        _two_rank_segments(dev, work, rank)
+    else:
+        state, step, layout = _small_step_world(dev, make_mesh(dev))
+        state, metrics = _small_steps(state, step, layout, dev)
+        torch.save({"metrics": metrics, "params": {k: p.detach().cpu() for k, p in state.params.items()}},
+                   os.path.join(work, f"rank{rank}.pt"))
     distributed.shutdown()
 
 
 if __name__ == "__main__":
-    _two_rank_main(int(sys.argv[1]), sys.argv[2])
+    _two_rank_main(sys.argv[1], int(sys.argv[2]), sys.argv[3])

@@ -24,7 +24,7 @@ from baddiffusion_tpu.models import UNet2DConfig as JaxUNet2DConfig
 from baddiffusion_tpu.models import UNet2DModel as JaxUNet2DModel
 from baddiffusion_tpu.pipelines import DiffusionPipeline as JaxDiffusionPipeline
 from baddiffusion_tpu.pipelines.sampler import sample_sde_ve as jax_sample_sde_ve
-from baddiffusion_tpu_torch.pipelines import DiffusionPipeline, segments
+from baddiffusion_tpu_torch.pipelines import DiffusionPipeline, sampler
 
 SHAPE = (2, 8, 8, 3)
 TINY = dict(
@@ -153,8 +153,14 @@ def test_segmented_sde_ve_matches_jax(tiny):
 def test_dispatch_rule_is_jax_s(tiny, monkeypatch, name, seg, start_from, segmented):
     _, pipe = pipes(tiny, name, 6)
     ran = []
-    real = segments.Chain.run_eager
-    monkeypatch.setattr(segments.Chain, "run_eager", lambda self, *a: ran.append(self.n) or real(self, *a))
+    real = sampler.Chain.run_eager
+
+    def run_eager(self, init, model_fn, draw, segment_steps=None):
+        if segment_steps:
+            ran.append(segment_steps)
+        return real(self, init, model_fn, draw, segment_steps)
+
+    monkeypatch.setattr(sampler.Chain, "run_eager", run_eager)
     pipe.segment_steps = seg
     whole_kw = dict(batch_size=1, generator=torch.Generator().manual_seed(0), output_type="pt")
     if name == "DDPMScheduler":
