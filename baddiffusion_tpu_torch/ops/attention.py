@@ -11,12 +11,17 @@ latent, the longest sequence of any model of the repo), D a multiple of 8 in
 has no bound on T (outside its Pallas envelope it runs its reference); here
 a call outside the envelope raises.
 
-Each call runs one of three variants, chosen on the host by
+Each call runs one of four variants, chosen on the host by
 ``attention_plan`` (cached) and checked again by the kernel's C entry point:
 ``packed`` (T ≤ 16, D ≤ 32: one thread a query row, the UNet's 1- and
 4-token calls), ``tiled`` (bf16 with D ≤ 256 otherwise: tensor-core tiles,
-FlashAttention-2's shape) and ``rowwise`` (the rest: f32 at longer T or wider
-D, and D > 256). The source note says what bounds each and how it answers.
+FlashAttention-2's shape), ``tf32x3`` (f32 otherwise: the same shape on the
+TF32 tensor cores, each product as three TF32 products so that it keeps f32
+accuracy) and ``wide`` (bf16 with D > 256: ``tiled``'s products with O's
+depth split between warps). In the last two a group of warps shares 16
+query rows, each warp owning a slice of D; the slices' partial scores are
+added in shared memory in a fixed order. The source note says what bounds
+each and how it answers.
 
 ``attention`` is differentiable (``_Attention``): the kernel runs the
 forward, and the backward recomputes the f32 softmax and applies the
@@ -42,22 +47,31 @@ MAX_T = 4096
 MIN_D, MAX_D = 8, 512
 # K3's launch plan (csrc/attention.cu): the H100's SMs, and the plan's choices
 FULL_GRID = 132  # blocks: one per SM
-VARIANTS = ("packed", "tiled", "rowwise")  # the kernel's variant codes, in order
+VARIANTS = ("packed", "tiled", "tf32x3", "wide")  # the kernel's variant codes, in order
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may have
 PACKED_MAX_T, PACKED_MAX_D = 16, 32
 PACKED_THREADS = (256, 128, 64, 32)  # one query row a thread; widest first
 TILED_MAX_D = 256
 TILED_DEPTHS = (16, 32, 64, 128, 256)  # the instantiations: D is zero-padded to the next
 TILED_ROWS = (16, 32, 64)  # the block heights the kernel takes, in query rows (16 a warp)
-ROWWISE_MAX_WARPS = 4
-ROWWISE_SMEM_FLOATS = 8192  # the K and V tiles together, in f32
+# tf32x3 and wide: the depth a warp may own (DW) -> the key tiles instantiated
+# with it, preferred first; a block's rows (16 a group of D/DW warps) and its
+# widest block
+SPLIT_PARTS = {"tf32x3": {8: (64,), 16: (64,), 32: (64,), 64: (32, 16), 128: (32, 16)},
+               "wide": {128: (32,), 256: (32,)}}
+SPLIT_ROWS = (16, 32, 64)
+# the widest block: 512 threads, where a lane's accumulators fit 128
+# registers (tf32x3 at DW = 64, wide at DW = 128), else 256
+SPLIT_MAX_THREADS = 512
 
 
 class AttentionPlan(NamedTuple):
     """How K3 runs one call: the ``variant``, ``threads`` per block, query
     ``rows`` a block owns, keys staged a step (``key_tile``; 0 for packed),
     the ``depth`` the variant runs D at (tiled: D zero-padded to its
-    instantiation; else D), ``smem_bytes`` of dynamic shared memory, and
-    ``blocks``, the grid."""
+    instantiation; tf32x3 and wide: the warps' slices of D together, a
+    warp's ``depth`` / (``threads`` / (2 ``rows``)); packed: D),
+    ``smem_bytes`` of dynamic shared memory, and ``blocks``, the grid."""
 
     variant: str
     threads: int
@@ -94,21 +108,86 @@ def attention_plan(bh: int, t: int, d: int, dtype) -> AttentionPlan:
       at T = 16 too. Keys come
       in tiles of 64 (32 at depth 256); shared memory holds Q and two stages
       of K and V, each row padded by 16 bytes.
-    - ``rowwise`` for the rest (f32 at T > 16 or D > 32, and D > 256): a warp
-      serves 32/L rows (L = 8, 16 or 32 lanes a row), a block 4 warps (fewer
-      only where T is shorter), for the same reason; K and V tiles of 8,192
-      f32 together."""
+    - ``tf32x3`` for f32 otherwise and ``wide`` for bf16 with D > 256: a
+      group of ``depth``/DW warps shares 16 query rows, each warp DW columns
+      of D. The rule follows ``scripts/time_attention.py --sweep`` on the
+      H100: tall blocks share each K and V tile among more rows, which pays
+      once the grid fills the card several times; on a short grid shorter
+      blocks spread the work over more SMs.
+
+      - ``tf32x3``, D ≤ 64: one warp a group (DW the smallest of 8, 16, 32,
+        64 that holds D), 64 rows a block (fewer only where T is shorter).
+      - ``tf32x3``, D > 64: where 32-row blocks would fill the card four
+        times, 64 rows with DW = 128 where they fit (D ≤ 256), else 32 rows
+        with DW = 64; otherwise DW = 64 and 32 rows where that still fills
+        half the card, else 16.
+      - ``wide``: DW = 256 and 64 rows where that fills the card once, else
+        DW = 128 and 16 rows.
+      - Keys come in tiles of 64 at DW ≤ 32, of 32 where they fit the
+        shared memory and T is longer than 16, else of 16."""
     _check_envelope(t, d, dtype)
     if t <= PACKED_MAX_T and d <= PACKED_MAX_D:
         threads = next((n for n in PACKED_THREADS if _cdiv(bh * t, n) >= FULL_GRID), PACKED_THREADS[-1])
         return AttentionPlan("packed", threads, threads, 0, d, 0, _cdiv(bh * t, threads))
     if dtype == torch.bfloat16 and d <= TILED_MAX_D:
         return _tiled_plan(bh, t, d, TILED_ROWS[-1])
-    rows_per_warp = 32 // (8 if d == 8 else 16 if d == 16 else 32)
-    warps = min(ROWWISE_MAX_WARPS, _cdiv(t, rows_per_warp))
-    key_tile = min(t, ROWWISE_SMEM_FLOATS // (2 * d))
-    rows = warps * rows_per_warp
-    return AttentionPlan("rowwise", 32 * warps, rows, key_tile, d, 8 * key_tile * d, bh * _cdiv(t, rows))
+    if dtype == torch.bfloat16:
+        if bh * _cdiv(t, 64) >= FULL_GRID:
+            return _fitting_split_plan("wide", bh, t, d, 64, 256)
+        return _fitting_split_plan("wide", bh, t, d, 16, 128)
+    if d <= 64:
+        part_depth = next(p for p in SPLIT_PARTS["tf32x3"] if p >= d)
+        rows = next(r for r in reversed(SPLIT_ROWS) if r == SPLIT_ROWS[0] or r // 2 < t)  # no taller than T needs
+        return _fitting_split_plan("tf32x3", bh, t, d, rows, part_depth)
+    if t > 32 and bh * _cdiv(t, 32) >= 4 * FULL_GRID:
+        plan = _fitting_split_plan("tf32x3", bh, t, d, 64, 128)
+        return plan if plan is not None else _fitting_split_plan("tf32x3", bh, t, d, 32, 64)
+    rows = 32 if t > 16 and 2 * bh * _cdiv(t, 32) >= FULL_GRID else 16
+    return _fitting_split_plan("tf32x3", bh, t, d, rows, 64)
+
+
+def _fitting_split_plan(variant: str, bh: int, t: int, d: int, rows: int, part_depth: int):
+    """The plan with the first of ``part_depth``'s key tiles that fits and
+    is no longer than T needs, or None."""
+    tiles = SPLIT_PARTS[variant][part_depth]
+    tiles = [n for n in tiles if n // 2 < t] or [min(tiles)]
+    plans = (_split_plan(variant, bh, t, d, rows, part_depth, n) for n in tiles)
+    return next((plan for plan in plans if plan is not None), None)
+
+
+def _split_plan(variant: str, bh: int, t: int, d: int, rows: int, part_depth: int, key_tile: int):
+    """The ``tf32x3`` or ``wide`` plan with ``rows`` query rows a block,
+    ``part_depth`` columns of D a warp and ``key_tile`` keys a step, or None
+    where the block would pass the kernel's limits. Shared memory
+    (csrc/attention.cu ``split_smem_bytes``): Q of the block's rows, two
+    stages of K and V tiles (f32: Q and K rows padded to 8 mod 32 words, V
+    rows to 4 mod 32; bf16: 16 bytes a row), and f32 partial scores, a key
+    tile's per row and warp, where a group has more than one warp."""
+    parts = _cdiv(d, part_depth)
+    depth, threads = parts * part_depth, 2 * rows * parts
+    if variant == "tf32x3":
+        smem = 4 * ((rows + 2 * key_tile) * _pad_to(depth, 8) + 2 * key_tile * _pad_to(depth, 4))
+    else:
+        smem = 2 * (rows + 4 * key_tile) * (depth + 8)
+    smem += 4 * rows * parts * key_tile if parts > 1 else 0
+    small_lanes = part_depth == (64 if variant == "tf32x3" else 128)  # accumulators within 128 registers
+    max_threads = SPLIT_MAX_THREADS if small_lanes else 256
+    if threads > max_threads or smem > SMEM_LIMIT:
+        return None
+    return AttentionPlan(variant, threads, rows, key_tile, depth, smem, bh * _cdiv(t, rows))
+
+
+def split_plans(variant: str, bh: int, t: int, d: int) -> list:
+    """Every ``variant`` plan the kernel takes at this shape: each block
+    height and depth a warp may own (``scripts/time_attention.py --sweep``)."""
+    plans = (_split_plan(variant, bh, t, d, rows, p, n)
+             for p, tiles in SPLIT_PARTS[variant].items() for n in tiles for rows in SPLIT_ROWS)
+    return [plan for plan in plans if plan is not None]
+
+
+def _pad_to(n: int, r: int) -> int:
+    """``n`` rounded up to ``r`` mod 32."""
+    return n + (r - n) % 32
 
 
 def _tiled_plan(bh: int, t: int, d: int, rows: int) -> AttentionPlan:

@@ -62,7 +62,7 @@ EVENT_TIMED = "(whole window, CUDA events)"  # device_profile's one entry when t
 KERNEL_CLASSES = (
     ("K1", ("groupnorm_silu_fwd_kernel",)),
     ("K2", ("groupnorm_silu_bwd_kernel", "sum_rows_kernel")),
-    ("K3", ("attention_packed_kernel", "attention_tiled_kernel", "attention_rowwise_kernel")),
+    ("K3", ("attention_packed_kernel", "attention_tiled_kernel", "attention_tf32x3_kernel", "attention_wide_kernel")),
     ("conv", ("fprop", "conv", "cutlass", "implicit_gemm", "xmma")),
     ("matmul", ("nvjet", "gemm", "cublas", "aten::mm", "aten::addmm", "aten::bmm")),
 )

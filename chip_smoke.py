@@ -22,15 +22,18 @@
    the main path's two shapes at batch 128 and 16, the scratch UNet at
    256 px, google/ddpm-cifar10-32, google/ddpm-ema-celebahq-256's 512-wide
    head, T = 1024 and a ragged T; each in f32 and bf16 against the plain
-   version and bitwise equal over two calls; its bound also counts the
-   exponentials, over the special-function rate). Then phase 9's shapes,
+   version and bitwise equal over two calls, timed in bf16 and, for the f32
+   measure's shapes, in f32 too; its bound also counts the exponentials, over
+   the special-function rate, and the tf32x3 plan's f32 products at three
+   TF32 products over the TF32 rate). Then phase 9's shapes,
    each against its plain twin and bitwise over two calls, timed in the
    dtype its path runs in beside its bound and library call: K1 and K2 at
    CompVis/ldm-celebahq-256's UNet widths at B=16 (C = 224, 448, 672, 896
    at 64, 32, 16 and 8 px: group widths 7-28, bf16) and its VQ-VAE's
    [16, 256, 256, 128] (f32); K3 at the envelope's long end, the VQ-VAE's
    [16, 1, 4096, 512] (f32 and bf16), the LDM UNet's heads of 32 at 32, 16
-   and 8 px, and NCSN++ at 16x16. Where two calls differ, the differing
+   and 8 px, and NCSN++ at 16x16 (these four in f32 too: the measure runs
+   f32). Where two calls differ, the differing
    elements and a third call are printed before the failure.
 3. The sampling path: the full-width scratch UNet (113.7M parameters, 32 px)
    with seeded weights, saved and reloaded through the pipeline's HF layout,
@@ -270,7 +273,9 @@ TMP_BASE = os.path.join(ROOT, ".chip_smoke_tmp")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+                  # K3's tf32x3 plan: f32 products as three TF32 tensor-core products (495 TFLOP/s)
+                  "tf32x3": 495e12 / 3}
 # exponentials per second of the special-function units, H100 SXM5
 # (FlashAttention-3, Shah et al., 2024, section 3.1): the softmax's bound
 PEAK_EXP_PER_S = 3.9e12
@@ -302,6 +307,9 @@ ATTN_SHAPES = {
     (4, 1, 64, 512): 0, (128, 16, 256, 8): 0, (128, 32, 64, 8): 0, (16, 16, 256, 8): 0, (16, 32, 64, 8): 0,
 }
 ATTN_SAMPLING = {(16, 64, 4, 8): 5, (16, 64, 1, 8): 1}  # a UNet forward at the sampling batch
+# the shapes of ATTN_SHAPES timed in f32 too: the f32 measure's, google/ddpm-cifar10-32 at batch 16 and
+# google/ddpm-ema-celebahq-256 at batch 8, and the 256 px scratch UNet's
+ATTN_F32_TIMED = {(16, 1, 256, 256), (16, 1, 16, 256), (8, 1, 256, 512), (8, 1, 64, 512), (4, 64, 256, 8)}
 # phase 9's shapes, checked and timed in the dtype their path runs in (not
 # counted into the scratch UNet's per-forward sums): GroupNorm+SiLU (B, H, W,
 # C) of CompVis/ldm-celebahq-256's UNet at the sampling batch (group widths 7,
@@ -313,13 +321,14 @@ GN_LATENT_SHAPES = {(16, 64, 64, 224): torch.bfloat16, (16, 32, 32, 448): torch.
                     (4, 256, 256, 128): torch.bfloat16}
 # attention [B, H, T, D]: the VQ-VAE's mid block at the 64x64 latent (the
 # envelope's long end), timed in both dtypes; the LDM UNet's three attention
-# resolutions at B=16 (448, 672 and 896 channels in heads of 32), the same
-# resolutions with one level's fewer heads each, and NCSN++ 256 px at 16x16
-# and the score step's batch
-ATTN_LATENT_SHAPES = {(16, 1, 4096, 512): None, (16, 14, 1024, 32): torch.bfloat16,
-                      (16, 21, 256, 32): torch.bfloat16, (16, 28, 64, 32): torch.bfloat16,
+# resolutions at B=16 (448, 672 and 896 channels in heads of 32; timed in
+# both dtypes: bf16 chains, an f32 measure), the same resolutions with one
+# level's fewer heads each, and NCSN++ 256 px at 16x16 and the score step's
+# batch (both dtypes); None: both
+ATTN_LATENT_SHAPES = {(16, 1, 4096, 512): None, (16, 14, 1024, 32): None,
+                      (16, 21, 256, 32): None, (16, 28, 64, 32): None,
                       (16, 7, 1024, 32): torch.bfloat16, (16, 14, 256, 32): torch.bfloat16,
-                      (16, 21, 64, 32): torch.bfloat16, (4, 32, 256, 8): torch.bfloat16}
+                      (16, 21, 64, 32): torch.bfloat16, (4, 32, 256, 8): None}
 GN_PER_FORWARD = sum(GN_SHAPES.values())
 ATTN_PER_FORWARD = sum(ATTN_SHAPES.values())
 TOL = {torch.float32: dict(atol=1e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
@@ -419,11 +428,12 @@ def breakdown(kernels: dict, per: float = 1.0) -> str:
     return profiling.format_by_class(profiling.device_time_by_class(kernels), per)
 
 
-def bound_ms(n_bytes: float, n_ops: float, dtype, n_exp: float = 0.0) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float, rate, n_exp: float = 0.0) -> tuple:
     """The least time the card could take: the largest of the bytes over the
-    memory rate, the operations over the tensor (or f32) rate, and the
-    exponentials over the special-function rate; and which of them it is."""
-    times = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3, "operations": n_ops / PEAK_OPS_PER_S[dtype] * 1e3,
+    memory rate, the operations over the rate of ``rate`` (a dtype's tensor
+    or f32 rate, or "tf32x3"), and the exponentials over the special-function
+    rate; and which of them it is."""
+    times = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3, "operations": n_ops / PEAK_OPS_PER_S[rate] * 1e3,
              "exponentials": n_exp / PEAK_EXP_PER_S * 1e3}
     by = max(times, key=times.get)
     return times[by], by
@@ -505,29 +515,30 @@ class KernelRecord:
         self.times = {}  # label -> the bf16 kernel's device ms per call
 
     def shape(self, label: str, mult: int, dtype, kernel, plain, library, n_bytes: float, n_ops: float,
-              tols=None, n_exp: float = 0.0, time_dtype=torch.bfloat16, reps: int = 20) -> tuple:
+              tols=None, n_exp: float = 0.0, time_dtype=torch.bfloat16, reps: int = 20, rate=None) -> tuple:
         """``kernel`` and ``plain`` return a tensor or a tuple of them, each
         held to its entry of ``tols`` (default ``TOL[dtype]``). Times the
-        calls in ``time_dtype`` (the dtype the shape's path runs in), with
-        ``reps`` calls a window (fewer for the slowest shapes). Returns the
-        kernel's outputs as a tuple."""
+        calls in ``time_dtype`` (the dtype, or a tuple of the dtypes, the
+        shape's paths run in), with ``reps`` calls a window (fewer for the
+        slowest shapes); the bound counts the operations at ``rate``
+        (default: ``dtype``'s). Returns the kernel's outputs as a tuple."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
         e = check_close(f"{self.entry['name']} {label} {dtype} vs plain", got, want, tols or [TOL[dtype]] * len(got))
         self.err = max(self.err, e)
-        if dtype != time_dtype:  # time the path's dtype only
+        if dtype not in (time_dtype if isinstance(time_dtype, tuple) else (time_dtype,)):  # the paths' dtypes only
             return got
         _, k_ms, kern, _ = device_profile(kernel, reps)
         s_ms = sum(ms for key, ms in kern.items() if self.second and self.second in key)
         k_wall = time_ms(kernel, reps=reps, repeats=5 if reps > 3 else 2)
         p_ms, l_ms = device_ms(plain, reps), device_ms(library, reps)
-        b_ms, b_by = bound_ms(n_bytes, n_ops, dtype, n_exp)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, dtype if rate is None else rate, n_exp)
         second = f" ({self.second} {s_ms:.4f} of it)" if self.second else ""
         print(f"   {label} x{mult:2d}  {str(dtype)[6:]} kernel {k_ms:.4f} ms{second} (per-call wall {k_wall:.4f})  "
               f"plain {p_ms:.4f} ms  {self.library} {l_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by}; kernel/bound "
-              f"{k_ms / b_ms:.2f})  max err {e:.3g}")
-        self.times[label] = k_ms
+              f"{k_ms / b_ms:.2f}, kernel/{self.library} {k_ms / l_ms:.2f})  max err {e:.3g}")
+        self.times[label if dtype == torch.bfloat16 else f"{label} {dtype}"] = k_ms
         for key, val in (("ms", k_ms), ("second_ms", s_ms), ("wall_ms", k_wall), ("plain_ms", p_ms),
                          ("library_ms", l_ms), ("bytes", n_bytes), ("ops", n_ops), ("exps", n_exp)):
             self.tot[key] += mult * val
@@ -716,18 +727,26 @@ def k2_shape(rec, dev, gen, b: int, h: int, w: int, c: int, dtype, label: str, m
     check_k2_autograd_and_repeatable(label, x, weight, bias, ct, got)
 
 
+def attn_rate(plan, dtype):
+    """The rate K3's bound counts a plan's products at: the tf32x3 plan runs
+    f32 as three TF32 tensor-core products; the others at their dtype's."""
+    return "tf32x3" if plan.variant == "tf32x3" else dtype
+
+
 def phase_attention(dev, gen) -> dict:
     print("-- K3 attention vs attention_plain; tolerance f32 atol 1e-5 (sums reordered), bf16 atol 1e-2 rtol 1e-2 "
-          "in f32 (one bf16 ulp ~0.8%; absorbs the tiled variant's bf16 probabilities); output bitwise equal over two "
-          "calls at every shape; bound: the largest of bytes, 4·T²·D products a head over the tensor rate and T² "
-          "exponentials a head over the special-function rate")
+          "in f32 (one bf16 ulp ~0.8%; absorbs the tiled and wide variants' bf16 probabilities); output bitwise equal "
+          "over two calls at every shape; bound: the largest of bytes, 4·T²·D products a head over the tensor rate "
+          "(the tf32x3 plan: three TF32 products, 495/3 TFLOP/s; packed: the f32 or bf16 rate) and T² exponentials "
+          "a head over the special-function rate")
     rec = KernelRecord("attention", "baddiffusion_tpu_torch/csrc/attention.cu",
                        "baddiffusion_tpu/ops/attention.py:42", "sdpa")
     for (b, h, t, d), mult in ATTN_SHAPES.items():
         scale = 1.0 / d**0.5
         label = f"[{b},{h},{t},{d}]"
         for dtype in (torch.float32, torch.bfloat16):
-            print(f"   {label} {str(dtype)[6:]} plan: {ops.attention_plan(b * h, t, d, dtype)}")
+            plan = ops.attention_plan(b * h, t, d, dtype)
+            print(f"   {label} {str(dtype)[6:]} plan: {plan}")
             q, k, v = (torch.randn(b, h, t, d, generator=gen, device=dev).to(dtype) for _ in range(3))
             (first,) = rec.shape(
                 label, mult, dtype,
@@ -737,17 +756,21 @@ def phase_attention(dev, gen) -> dict:
                 n_bytes=4 * q.numel() * q.element_size(),
                 n_ops=4 * b * h * t * t * d,  # the q·k and p·v products
                 n_exp=b * h * t * t,  # one exponential a score
+                time_dtype=(torch.bfloat16, torch.float32) if (b, h, t, d) in ATTN_F32_TIMED else torch.bfloat16,
+                rate=attn_rate(plan, dtype),
             )
             check_repeatable(f"K3 {label} {dtype}", first, lambda: ops.attention(q, k, v, scale))
     sampling_ms = sum(mult * rec.times[f"[{b},{h},{t},{d}]"] for (b, h, t, d), mult in ATTN_SAMPLING.items())
     print(f"   per UNet forward (B={SAMPLE_BATCH}, bf16, {sum(ATTN_SAMPLING.values())} calls): kernel "
           f"{sampling_ms:.4f} ms")
-    print("   phase 9's shapes (the VQ-VAE's T = 4096 head timed in both dtypes, 3 calls a window; the rest bf16):")
+    print("   phase 9's shapes (the VQ-VAE's T = 4096 head, the LDM UNet's three resolutions and NCSN++ timed in both "
+          "dtypes, the VQ-VAE's 3 calls a window; the rest bf16):")
     for (b, h, t, d), time_dtype in ATTN_LATENT_SHAPES.items():
         scale = 1.0 / d**0.5
         label = f"[{b},{h},{t},{d}]"
         for dtype in (torch.float32, torch.bfloat16):
-            print(f"   {label} {str(dtype)[6:]} plan: {ops.attention_plan(b * h, t, d, dtype)}")
+            plan = ops.attention_plan(b * h, t, d, dtype)
+            print(f"   {label} {str(dtype)[6:]} plan: {plan}")
             q, k, v = (torch.randn(b, h, t, d, generator=gen, device=dev).to(dtype) for _ in range(3))
             (first,) = rec.shape(
                 label, 0, dtype,
@@ -756,6 +779,7 @@ def phase_attention(dev, gen) -> dict:
                 lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                 n_bytes=4 * q.numel() * q.element_size(), n_ops=4 * b * h * t * t * d, n_exp=b * h * t * t,
                 time_dtype=dtype if time_dtype is None else time_dtype, reps=3 if t == 4096 else 20,
+                rate=attn_rate(plan, dtype),
             )
             check_repeatable(f"K3 {label} {dtype}", first, lambda: ops.attention(q, k, v, scale))
             del q, k, v, first

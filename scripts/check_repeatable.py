@@ -2,7 +2,7 @@
 """Repeatability of the port's kernels (K1, K2, K3) on the card, at the
 shapes ``chip_smoke.py`` phase 2 checks them at.
 
-    python3 scripts/check_repeatable.py [--calls N] [--tiled-only]
+    python3 scripts/check_repeatable.py [--calls N] [--repeat-only]
 
 Two tests, each bitwise:
 
@@ -11,11 +11,12 @@ Two tests, each bitwise:
    hashed patterns) over the whole shared memory of every SM; the kernel's
    outputs after each fill must be the same bits. A kernel that reads shared
    memory it did not write shows here.
-2. Many calls in a row: K3 at every shape with a ``tiled`` plan in bf16, N
-   calls (default 500) each compared with the first, with
+2. Many calls in a row: K3 at every shape and dtype whose plan runs on the
+   tensor cores (``tiled`` and ``wide`` in bf16, ``tf32x3`` in f32), N calls
+   (default 500; 50 at T = 4096) each compared with the first, with
    ``scaled_dot_product_attention`` run between every third pair.
 
-``--tiled-only`` runs the second test alone (what a run under
+``--repeat-only`` runs the second test alone (what a run under
 ``compute-sanitizer`` needs: the fills and the K1/K2 shapes would take it
 hours). Prints the card's name and power limit, a line for each shape that differed
 (none, when the kernels are sound), the counts, and one JSON line. Exits 1 if
@@ -97,9 +98,12 @@ def after_fills(fill, sms: int, label: str, fn) -> int:
     return differ
 
 
+TENSOR_CORE_PLANS = ("tiled", "tf32x3", "wide")
+
+
 def fill_tests(dev, gen, attn: list) -> tuple:
     """The first test at every shape; returns (cases, outputs a fill
-    changed, the shapes whose bf16 plan is ``tiled``)."""
+    changed, the (shape, dtype) pairs whose plan runs on the tensor cores)."""
     fill = fill_library()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     groups, eps = chip_smoke.GROUPS, chip_smoke.EPS
@@ -116,7 +120,7 @@ def fill_tests(dev, gen, attn: list) -> tuple:
             differ += after_fills(fill, sms, f"K2 {label}",
                                   lambda: ops.groupnorm_silu_backward(x, weight, bias, mean, rstd, ct, groups))
             checked += 2
-    tiled = []
+    repeat = []
     for shape in attn:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(*shape, generator=gen, device=dev).to(dtype) for _ in range(3))
@@ -125,18 +129,18 @@ def fill_tests(dev, gen, attn: list) -> tuple:
             differ += after_fills(fill, sms, f"K3 {list(shape)} {str(dtype)[6:]} ({plan.variant})",
                                   lambda: ops.attention(q, k, v, scale))
             checked += 1
-            if plan.variant == "tiled":
-                tiled.append(shape)
+            if plan.variant in TENSOR_CORE_PLANS:
+                repeat.append((shape, dtype))
             del q, k, v
     print(f"after {len(PATTERNS)} shared-memory fills: {checked} cases (kernel, shape, dtype), {differ} outputs "
           "changed by a fill")
-    return checked, differ, tiled
+    return checked, differ, repeat
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--calls", type=int, default=500, help="K3 calls a shape in the second test")
-    parser.add_argument("--tiled-only", action="store_true", help="the second test alone")
+    parser.add_argument("--repeat-only", action="store_true", help="the second test alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("check_repeatable: needs a GPU", file=sys.stderr)
@@ -148,27 +152,30 @@ def main() -> int:
     gen = torch.Generator(dev).manual_seed(0)
     attn = list(chip_smoke.ATTN_SHAPES) + list(chip_smoke.ATTN_LATENT_SHAPES)
     checked = differ = 0
-    if args.tiled_only:
-        tiled = [s for s in attn if ops.attention_plan(s[0] * s[1], s[2], s[3], torch.bfloat16).variant == "tiled"]
+    if args.repeat_only:
+        repeat = [(s, dtype) for s in attn for dtype in (torch.float32, torch.bfloat16)
+                 if ops.attention_plan(s[0] * s[1], s[2], s[3], dtype).variant in TENSOR_CORE_PLANS]
     else:
-        checked, differ, tiled = fill_tests(dev, gen, attn)
+        checked, differ, repeat = fill_tests(dev, gen, attn)
 
     calls = calls_differ = 0
-    for shape in tiled:
-        q, k, v = (torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    for shape, dtype in repeat:
+        q, k, v = (torch.randn(*shape, generator=gen, device=dev).to(dtype) for _ in range(3))
         scale = shape[3] ** -0.5
         first = ops.attention(q, k, v, scale)
         bad = torch.zeros((), dtype=torch.int64, device=dev)
-        for i in range(args.calls):
+        n_calls = min(args.calls, 50) if shape[2] == 4096 else args.calls
+        for i in range(n_calls):
             bad += (ops.attention(q, k, v, scale) != first).sum()
             if i % 3 == 0:
                 F.scaled_dot_product_attention(q, k, v, scale=scale)
         n_bad = int(bad)
-        calls += args.calls
+        calls += n_calls
         if n_bad:
             calls_differ += 1
-            print(f"   K3 {list(shape)} bf16: {n_bad} elements differed from the first call over {args.calls} calls")
-    print(f"K3 tiled, {len(tiled)} shapes x {args.calls} calls: {calls} calls, {calls_differ} shapes differed")
+            print(f"   K3 {list(shape)} {str(dtype)[6:]} ({ops.attention_plan(shape[0] * shape[1], shape[2], shape[3], dtype).variant}): "
+                  f"{n_bad} elements differed from the first call over {n_calls} calls")
+    print(f"K3 on the tensor cores, {len(repeat)} (shape, dtype) pairs: {calls} calls, {calls_differ} pairs differed")
     print(json.dumps({"fill_checked": checked, "fill_changed": differ, "repeat_calls": calls,
                       "repeat_shapes_differed": calls_differ}))
     return 1 if differ or calls_differ else 0

@@ -285,18 +285,22 @@ def test_groupnorm_silu_gradient_equals_autograd_through_plain(dev, dtype):
         torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=1e-4)
 
 
-# [B, H, T, D]: 8- and 16-lane rows, masked lanes (D 24, 40), the largest D
-# with a partial last K/V tile, the longest T (rowwise in f32; in bf16 the
-# first four and the last are tiled); then the packed plan (the UNet's 4- and
-# 1-token calls, T = 16 at D = 32, D = 24) and the tiled plan in bf16 at
-# D = 8, 16, 64, 128 and 256, ragged T, T = 1 and T = 1024; then the
-# envelope's long end, T = 4096: the VQ-VAE's one 512-wide head (rowwise in
-# both dtypes), and D = 8, 64 and 256 (tiled in bf16)
+# [B, H, T, D]: D = 8, 16, 24 and 40 past the packed plan, the largest D with
+# a partial last K/V tile, the longest T (tf32x3 in f32; in bf16 the first
+# four and the sixth are tiled, the fifth wide); then the packed plan (the
+# UNet's 4- and 1-token calls, T = 16 at D = 32, D = 24) and the tiled plan in
+# bf16 at D = 8, 16, 64, 128 and 256, ragged T, T = 1 and T = 1024; then the
+# envelope's long end, T = 4096: the VQ-VAE's one 512-wide head (tf32x3 and
+# wide), and D = 8, 64 and 256 (tiled in bf16); then the wide plan's depths
+# past 256 (264, 384, 512) at T = 1, ragged T and a partial last key tile,
+# each also in f32 (tf32x3)
 ATTN_CASES = [(2, 3, 17, 8), (1, 2, 33, 16), (2, 3, 17, 24), (2, 2, 7, 40), (1, 1, 1000, 512), (1, 2, 1024, 8),
               (2, 64, 4, 8), (2, 64, 1, 8), (3, 5, 16, 32), (1, 2, 7, 24),
               (2, 4, 256, 8), (2, 3, 40, 16), (2, 3, 100, 64), (1, 2, 64, 128), (2, 1, 256, 256), (1, 1, 16, 256),
               (1, 2, 1, 256), (1, 2, 1024, 64),
-              (1, 1, 4096, 512), (1, 2, 4096, 8), (1, 2, 4096, 64), (1, 1, 4096, 256), (1, 1, 4095, 136)]
+              (1, 1, 4096, 512), (1, 2, 4096, 8), (1, 2, 4096, 64), (1, 1, 4096, 256), (1, 1, 4095, 136),
+              (1, 2, 1, 264), (2, 1, 33, 264), (1, 2, 100, 384), (2, 1, 1, 512), (1, 3, 47, 512), (8, 1, 64, 512),
+              (1, 1, 2049, 384)]
 
 
 def _qkv(shape, dtype, dev, seed=None):
@@ -313,19 +317,27 @@ def test_attention_kernel_matches_plain(dev, shape, dtype):
     torch.testing.assert_close(got.float(), ops.attention_plain(q, k, v, scale).float(), **TOL[dtype])
 
 
-# (shape, dtype, the plan's variant): each variant in each dtype it takes
+# (shape, dtype, the plan's variant): each variant in each dtype it takes;
+# tf32x3 at each depth a warp may own (8, 32, 64 and 128: [16, 1, 4096, 512]
+# takes 128 where the grid is large, [8, 1, 256, 512] 64) and T = 1, wide at
+# both depths (256 at T = 4096, 128 on a short grid), D = 264 and 384
 ATTN_PLAN_CASES = [((128, 64, 4, 8), torch.bfloat16, "packed"), ((16, 64, 1, 8), torch.float32, "packed"),
                    ((4, 64, 256, 8), torch.bfloat16, "tiled"), ((2, 3, 100, 64), torch.bfloat16, "tiled"),
                    ((16, 1, 256, 256), torch.bfloat16, "tiled"), ((4, 8, 1024, 64), torch.bfloat16, "tiled"),
-                   ((2, 1, 256, 512), torch.bfloat16, "rowwise"), ((2, 3, 100, 64), torch.float32, "rowwise"),
-                   ((2, 1, 4096, 512), torch.float32, "rowwise"), ((2, 1, 4096, 512), torch.bfloat16, "rowwise"),
-                   ((2, 2, 4096, 32), torch.bfloat16, "tiled")]
+                   ((2, 1, 256, 512), torch.bfloat16, "wide"), ((2, 3, 100, 64), torch.float32, "tf32x3"),
+                   ((2, 1, 4096, 512), torch.float32, "tf32x3"), ((2, 1, 4096, 512), torch.bfloat16, "wide"),
+                   ((2, 2, 4096, 32), torch.bfloat16, "tiled"),
+                   ((4, 32, 256, 8), torch.float32, "tf32x3"), ((16, 14, 1024, 32), torch.float32, "tf32x3"),
+                   ((16, 1, 4096, 512), torch.float32, "tf32x3"), ((8, 1, 256, 512), torch.float32, "tf32x3"),
+                   ((2, 1, 1, 512), torch.float32, "tf32x3"), ((16, 1, 4096, 512), torch.bfloat16, "wide"),
+                   ((1, 2, 1, 264), torch.bfloat16, "wide"), ((2, 1, 100, 384), torch.bfloat16, "wide")]
 
 
 @pytest.mark.parametrize("shape,dtype,variant", ATTN_PLAN_CASES)
 def test_attention_kernel_is_bitwise_repeatable(dev, shape, dtype, variant):
     """Each variant: against the plain twin, and the same bits on two calls
-    (no split over keys, no atomics)."""
+    (no split over keys, no atomics; tf32x3 and wide add the warps' partial
+    scores in a fixed order)."""
     b, h, t, d = shape
     assert ops.attention_plan(b * h, t, d, dtype).variant == variant
     q, k, v = _qkv(shape, dtype, dev)
@@ -353,7 +365,7 @@ def test_attention_kernel_refuses_a_plan_that_does_not_fit(dev):
         return rc, out
 
     for shape, dtype in (((2, 3, 100, 64), torch.bfloat16), ((2, 64, 4, 8), torch.bfloat16),
-                         ((2, 1, 40, 512), torch.float32)):
+                         ((2, 1, 40, 512), torch.float32), ((2, 1, 40, 512), torch.bfloat16)):
         q = _qkv(shape, dtype, dev)[0]
         b, h, t, d = shape
         plan = ops.attention_plan(b * h, t, d, dtype)
@@ -367,6 +379,9 @@ def test_attention_kernel_refuses_a_plan_that_does_not_fit(dev):
                dict(variant="tiled") if plan.variant == "packed" else dict(variant="packed", key_tile=0, smem_bytes=0)]
         if plan.variant == "tiled":
             bad += [dict(dtype_code=0), dict(key_tile=plan.key_tile // 2), dict(rows=48, threads=96)]
+        if plan.variant in ("tf32x3", "wide"):  # the other dtype, a key tile or depth a warp not instantiated
+            bad += [dict(dtype_code=1 - code), dict(key_tile=plan.key_tile * 4),
+                    dict(depth=2 * plan.depth, threads=plan.threads), dict(variant="tiled")]
         for change in bad:
             assert call(q, plan, **{"dtype_code": code, **change})[0] != 0, (shape, change)
     # past the envelope's long end, with the plan of T = 4096

@@ -15,8 +15,8 @@ the JAX side's init and forward compiles at 113.7M parameters).
   32 resnets).
 - K1, K2 and K3 calls of a forward and of a backward, counted on the CPU
   through the wrappers' plain paths: (45, 45, 6) and (65, 65, 6); and the
-  plans K3 takes at the path's shapes (``tiled`` in bf16 and ``rowwise`` in
-  f32 for the 256-wide head, ``rowwise`` in both for the 512-wide).
+  plans K3 takes at the path's shapes (``tiled`` in bf16 and ``tf32x3`` in
+  f32 for the 256-wide head, ``wide`` and ``tf32x3`` for the 512-wide).
 """
 
 import dataclasses
@@ -53,8 +53,8 @@ CONFIGS = {
 # path's own size with the plan each dtype takes
 KERNEL_CALLS = {"ddpm-cifar10-32": (45, 45, 6), "ddpm-ema-celebahq-256": (65, 65, 6)}
 K3_PLANS = {
-    "ddpm-cifar10-32": {(128, 1, 256, 256): ("tiled", "rowwise"), (128, 1, 16, 256): ("tiled", "rowwise")},
-    "ddpm-ema-celebahq-256": {(8, 1, 256, 512): ("rowwise", "rowwise"), (8, 1, 64, 512): ("rowwise", "rowwise")},
+    "ddpm-cifar10-32": {(128, 1, 256, 256): ("tiled", "tf32x3"), (128, 1, 16, 256): ("tiled", "tf32x3")},
+    "ddpm-ema-celebahq-256": {(8, 1, 256, 512): ("wide", "tf32x3"), (8, 1, 64, 512): ("wide", "tf32x3")},
 }
 
 

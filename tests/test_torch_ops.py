@@ -3,6 +3,8 @@ against the JAX package's Pallas kernels (interpret mode) and references, and
 the dispatch contract (CPU tensors take the plain version, launch nothing).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -193,19 +195,20 @@ def test_groupnorm_rejects_indivisible_channels():
         groupnorm_silu(torch.zeros(1, 2, 2, 48), torch.ones(48), torch.zeros(48), 32)
 
 
-# [B, H, T, D] -> K3's variant in bf16: the main path at the training (128)
+# [B, H, T, D] -> K3's variant in bf16 (f32 takes packed where bf16 does,
+# else tf32x3): the main path at the training (128)
 # and sampling (16) batches; the scratch UNet at 256 px, micro-batch 4;
 # google/ddpm-cifar10-32 at batch 16; google/ddpm-ema-celebahq-256's 512-wide
 # head; the envelope's long end; ragged T; one head of 8 tokens of 40
 ATTN_PLAN_CASES = [
     ((128, 64, 4, 8), "packed"), ((128, 64, 1, 8), "packed"), ((16, 64, 4, 8), "packed"), ((16, 64, 1, 8), "packed"),
     ((4, 64, 256, 8), "tiled"), ((4, 64, 64, 8), "tiled"), ((16, 1, 256, 256), "tiled"), ((16, 1, 16, 256), "tiled"),
-    ((2, 1, 256, 512), "rowwise"), ((4, 8, 1024, 64), "tiled"), ((1, 1, 1024, 512), "rowwise"),
+    ((2, 1, 256, 512), "wide"), ((4, 8, 1024, 64), "tiled"), ((1, 1, 1024, 512), "wide"),
     ((2, 3, 100, 64), "tiled"), ((1, 1, 8, 40), "tiled"), ((2, 3, 40, 16), "tiled"), ((1, 2, 33, 16), "tiled"),
     # the VQ-VAE's mid block at LDM-CELEBA-HQ-256's 64x64 latent (the envelope's long end), the LDM UNet's
     # three attention resolutions at the sampling batch, NCSN++ 256 px at 16x16 and 4x4, and T = 4096 at
     # every tiled depth
-    ((16, 1, 4096, 512), "rowwise"), ((16, 14, 1024, 32), "tiled"), ((16, 21, 256, 32), "tiled"),
+    ((16, 1, 4096, 512), "wide"), ((16, 14, 1024, 32), "tiled"), ((16, 21, 256, 32), "tiled"),
     ((16, 28, 64, 32), "tiled"), ((2, 32, 256, 8), "tiled"), ((2, 32, 16, 8), "packed"), ((1, 2, 4096, 8), "tiled"),
     ((1, 1, 4096, 64), "tiled"), ((1, 1, 4096, 256), "tiled"), ((1, 1, 4093, 136), "tiled"),
 ]
@@ -216,15 +219,16 @@ ATTN_PLAN_CASES = [
 def test_attention_launch_plan(shape, bf16_variant, dtype):
     """K3's launch plan (computed on the CPU; the kernel checks it again):
     packed for T <= 16 and D <= 32 in both dtypes, tiled for the rest of bf16
-    up to D = 256, rowwise for the rest; every query row covered, shared
-    memory within the H100's 227 KB, and, for packed, a block per SM
-    wherever the rows allow it. Tiled and rowwise blocks stage their head's
-    whole K and V, so they keep their full height (64 rows, four warps)
+    up to D = 256, wide for bf16 above it, tf32x3 for the rest of f32; every
+    query row covered, shared memory within the H100's 227 KB, and, for
+    packed, a block per SM wherever the rows allow it. Tiled blocks stage
+    their head's whole K and V, so they keep their full height (64 rows)
     whatever the grid: on the H100 that was faster than shorter blocks at
-    every shape timed."""
+    every shape timed. tf32x3 and wide split D between the warps of a
+    16-row group: ``depth`` / (``threads`` / (2 ``rows``)) columns a warp."""
     b, h, t, d = shape
     plan = ops.attention_plan(b * h, t, d, dtype)
-    want = bf16_variant if dtype == torch.bfloat16 or bf16_variant == "packed" else "rowwise"
+    want = bf16_variant if dtype == torch.bfloat16 or bf16_variant == "packed" else "tf32x3"
     assert plan.variant == want
     assert plan.smem_bytes <= 227 * 1024
     if plan.variant == "packed":
@@ -238,11 +242,18 @@ def test_attention_launch_plan(shape, bf16_variant, dtype):
         assert plan.smem_bytes >= (plan.rows + 4 * plan.key_tile) * plan.depth * 2
         finest = 0
     else:
-        rows_per_warp = 32 // min(32, d)
-        assert plan.threads == 32 * min(4, -(-t // rows_per_warp)) and plan.rows == plan.threads // 32 * rows_per_warp
-        assert plan.key_tile == min(t, 8192 // (2 * d)) and plan.smem_bytes == 8 * plan.key_tile * d
+        parts = plan.threads // (2 * plan.rows)
+        part_depth = plan.depth // parts
+        assert plan.threads == 2 * plan.rows * parts and plan.rows in (16, 32, 64)
+        assert part_depth in ((8, 16, 32, 64, 128) if dtype == torch.float32 else (128, 256))
+        assert parts == -(-d // part_depth)  # no warp owns only padding
+        assert plan.threads <= (512 if part_depth == (64 if dtype == torch.float32 else 128) else 256)
+        assert plan.rows // 2 < t or plan.rows == 16  # no taller than T needs
+        elem = 4 if dtype == torch.float32 else 2
+        staged = (plan.rows + 4 * plan.key_tile) * plan.depth * elem + (4 * plan.rows * parts * plan.key_tile if parts > 1 else 0)
+        assert plan.smem_bytes >= staged
         assert plan.blocks == b * h * -(-t // plan.rows)
-        finest = 0  # four warps a block, whatever the grid
+        finest = 0
     if finest >= 132:
         assert plan.blocks >= 132
     assert ops.attention_plan(b * h, t, d, dtype) is plan  # cached
@@ -260,6 +271,33 @@ def test_attention_plan_runs_every_longer_bf16_call_on_the_tensor_cores():
         for d in (8, 16, 24, 32):
             for dtype in (torch.float32, torch.bfloat16):
                 assert ops.attention_plan(5, t, d, dtype).variant == "packed", (t, d, dtype)
+
+
+def test_attention_plan_runs_no_call_on_the_old_rowwise_kernel():
+    """Over the envelope (T in [1, 4096], D in [8, 512], both dtypes): no plan
+    is rowwise; every f32 call outside packed takes tf32x3, every bf16 call
+    with D > 256 takes wide; shared memory stays within 227 KB and threads
+    within the variant's cap."""
+    ts = list(range(1, 80)) + list(range(80, 4097, 37)) + [255, 256, 257, 1023, 1024, 4095, 4096]
+    for bh in (1, 16, 2048):
+        for t in ts:
+            for d in range(8, 520, 8):
+                for dtype in (torch.float32, torch.bfloat16):
+                    plan = ops.attention_plan(bh, t, d, dtype)
+                    assert plan.variant != "rowwise"
+                    if t <= 16 and d <= 32:
+                        assert plan.variant == "packed", (bh, t, d, dtype, plan)
+                    elif dtype == torch.float32:
+                        assert plan.variant == "tf32x3", (bh, t, d, plan)
+                    elif d > 256:
+                        assert plan.variant == "wide", (bh, t, d, plan)
+                    else:
+                        assert plan.variant == "tiled", (bh, t, d, plan)
+                    assert plan.smem_bytes <= 227 * 1024 and plan.threads <= 512, (bh, t, d, dtype, plan)
+                    if plan.variant in ("tf32x3", "wide"):
+                        assert plan.threads % (plan.depth // (4 if dtype == torch.float32 else 8)) == 0
+        ops.attention_plan.cache_clear()
+    assert "rowwise" not in importlib.import_module("baddiffusion_tpu_torch.ops.attention").VARIANTS
 
 
 def test_attention_plan_refuses_outside_the_envelope():

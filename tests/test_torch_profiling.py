@@ -66,7 +66,8 @@ def test_top_device_ops_by_time():
     ("sum_rows_kernel(float const*, float*, int, int)", "K2"),
     ("void attention_tiled_kernel<64, 64>(...)", "K3"),
     ("attention_packed_kernel", "K3"),
-    ("attention_rowwise_kernel", "K3"),
+    ("void attention_tf32x3_kernel<128, 16>(float const*, ...)", "K3"),
+    ("attention_wide_kernel", "K3"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32", "conv"),
     ("aten::mkldnn_convolution", "conv"),
     ("nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_NTT", "matmul"),
