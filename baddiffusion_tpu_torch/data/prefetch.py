@@ -10,6 +10,11 @@ its memory to a later copy while the consumer's kernels may still read it.
 On a CPU device the thread only wraps the arrays as tensors. With ``rows``
 (``parallel.batch_sharding``), each rank stages only its rows of each
 global batch, as the JAX loop feeds each process's rows.
+
+Under a recording profiler the consumer's wait for a batch (the queue and
+the event) is the span ``data.wait`` and the thread's staging of one
+``data.stage`` (``utils/profiling.span``); the thread's span lands in the
+trace only when the profiler records every thread.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from baddiffusion_tpu_torch.device import DeviceLike, resolve_device
+from baddiffusion_tpu_torch.utils.profiling import span
 
 _SENTINEL = object()
 
@@ -57,7 +63,9 @@ def device_prefetch(
             for batch in batches:
                 if stop.is_set():
                     return
-                q.put(stage(batch))
+                with span("data.stage"):
+                    staged = stage(batch)
+                q.put(staged)
         except Exception as exc:  # raised again in the consumer
             q.put(exc)
         q.put(_SENTINEL)
@@ -66,17 +74,18 @@ def device_prefetch(
     thread.start()
     try:
         while True:
-            item = q.get()
-            if item is _SENTINEL:
-                return
-            if isinstance(item, Exception):
-                raise item
-            out, ready = item
-            if ready is not None:
-                consumer = torch.cuda.current_stream(device)
-                consumer.wait_event(ready)
-                for t in out.values():
-                    t.record_stream(consumer)
+            with span("data.wait"):
+                item = q.get()
+                if item is _SENTINEL:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                out, ready = item
+                if ready is not None:
+                    consumer = torch.cuda.current_stream(device)
+                    consumer.wait_event(ready)
+                    for t in out.values():
+                        t.record_stream(consumer)
             yield out
     finally:
         stop.set()

@@ -91,7 +91,7 @@ def run(variants: Sequence[str] = ("loop", "remat_full"), iters: int = 5, hbm: b
             if hbm:
                 stats = measure_device_time(run_once, steps=2, device=dev)
                 out.update(device_ms_per_step=round(stats["device_time_ms_per_step"], 1),
-                           idle_share=round(stats["idle_share"], 4), hbm_gib_per_step=stats["hbm_gib_per_step"])
+                           idle_share=round(stats["idle_share"], 4))
         except torch.cuda.OutOfMemoryError as exc:
             out = {"variant": variant, "error": f"{type(exc).__name__}: {exc}"[:200]}
         print(json.dumps(out), flush=True)

@@ -7,8 +7,8 @@ compute on f32 parameters, batch 128, BOX_14 -> CORNER at 0.1), or the
 (``utils/profiling.measure_device_time``) and prints the kernels ranked by
 device time (``top_device_ops``), each with its class (K1, K2, K3, conv,
 matmul, other). The JAX script's byte and FLOP columns have no counterpart:
-torch.profiler records neither, so ``hbm_*`` and ``measured_flops_per_step``
-are None and no byte column is printed (``mfu_analysis`` counts the FLOPs).
+torch.profiler records neither, so no byte or FLOP column is printed
+(``mfu_analysis`` counts the FLOPs).
 
     python -m baddiffusion_tpu_torch.examples.profile_attribution [train|sample] [--gpu cpu]
 """
@@ -98,7 +98,7 @@ def run(which: str = "train", *, device: DeviceLike = None, batch: int = BATCH, 
     total = sum(ms for _, _, ms in rows) or 1.0
     print(f"== {which} on {stats['device']}: {stats['device_time_ms_per_step']:.2f} ms device a step, "
           f"{stats['wall_ms_per_step']:.2f} ms wall, idle {100 * stats['idle_share']:.1f}% (no byte or FLOP column: "
-          "torch.profiler records neither, hbm_* is None) ==")
+          "torch.profiler records neither) ==")
     print(f"{'time%':>6} {'t_ms':>9}  {'class':<6} kernel")
     shown = 0.0
     for cls, name, ms in rows[:top]:

@@ -44,6 +44,7 @@ from baddiffusion_tpu_torch.models.blocks import (
 )
 from baddiffusion_tpu_torch.models.embeddings import GaussianFourierProjection, TimestepEmbedding, Timesteps
 from baddiffusion_tpu_torch.models.resnet import Conv2d, GroupNorm, Linear
+from baddiffusion_tpu_torch.utils.profiling import span, timed
 
 MODEL_CONFIG_NAME = "config.json"
 
@@ -180,11 +181,12 @@ class UNet2DModel(nn.Module):
         if config.class_embed_type not in (None, "timestep", "identity"):
             raise NotImplementedError(f"class_embed_type {config.class_embed_type!r}")
         self.config = config
-        with torch.device("meta"):  # build without allocating; init below
-            self._build(config)
-        self.to_empty(device=device)
-        init_weights_(self, generator if generator is not None else torch.Generator().manual_seed(0))
-        self.to(memory_format=torch.channels_last)
+        with timed("unet.init"):
+            with torch.device("meta"):  # build without allocating; init below
+                self._build(config)
+            self.to_empty(device=device)
+            init_weights_(self, generator if generator is not None else torch.Generator().manual_seed(0))
+            self.to(memory_format=torch.channels_last)
         self.eval()
 
     def _build(self, cfg: UNet2DConfig) -> None:
@@ -265,50 +267,63 @@ class UNet2DModel(nn.Module):
         """sample: ``[B, H, W, C]``; timesteps: scalar or ``[B]``;
         class_labels: ``[B]`` class ids (``num_class_embeds``) or timesteps
         (``"timestep"``), or ``[B, 4·C0]`` embeddings (``"identity"``).
-        Computes in ``self.dtype``; returns f32."""
+        Computes in ``self.dtype``; returns f32. Under a recording profiler
+        the call is the span ``unet.forward``, holding ``unet.embed``
+        (with ``conv_in``), ``unet.down.<i>``, ``unet.mid``, ``unet.up.<i>``
+        and ``unet.out``; the construction is counted as ``unet.init``
+        (``utils/profiling``)."""
+        with span("unet.forward"):
+            return self._forward(sample, timesteps, class_labels)
+
+    def _forward(self, sample, timesteps, class_labels):
         cfg = self.config
         dtype = self.dtype
-        if cfg.center_input_sample:
-            sample = 2.0 * sample - 1.0
-        timesteps = torch.as_tensor(timesteps, device=sample.device)
-        if timesteps.dim() == 0:
-            timesteps = timesteps.expand(sample.shape[0])
+        with span("unet.embed"):
+            if cfg.center_input_sample:
+                sample = 2.0 * sample - 1.0
+            timesteps = torch.as_tensor(timesteps, device=sample.device)
+            if timesteps.dim() == 0:
+                timesteps = timesteps.expand(sample.shape[0])
 
-        emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
-        if cfg.class_embed_type is None and cfg.num_class_embeds is not None:
-            emb = emb + self.class_embedding(class_labels.long()).to(dtype)
-        elif cfg.class_embed_type == "timestep":
-            emb = emb + self.class_embedding(self.class_proj(class_labels).to(dtype))
-        elif cfg.class_embed_type == "identity":
-            emb = emb + class_labels.to(dtype)
+            emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
+            if cfg.class_embed_type is None and cfg.num_class_embeds is not None:
+                emb = emb + self.class_embedding(class_labels.long()).to(dtype)
+            elif cfg.class_embed_type == "timestep":
+                emb = emb + self.class_embedding(self.class_proj(class_labels).to(dtype))
+            elif cfg.class_embed_type == "identity":
+                emb = emb + class_labels.to(dtype)
 
-        skip_sample = sample
-        sample = self.conv_in(sample.to(dtype))
+            skip_sample = sample
+            sample = self.conv_in(sample.to(dtype))
 
         down_block_res_samples = (sample,)
-        for block in self.down_blocks:
-            if isinstance(block, SkipDownBlock2D):
-                sample, res_samples, skip_sample = block(sample, emb, skip_sample)
-            else:
-                sample, res_samples = block(sample, emb)
+        for i, block in enumerate(self.down_blocks):
+            with span(f"unet.down.{i}"):
+                if isinstance(block, SkipDownBlock2D):
+                    sample, res_samples, skip_sample = block(sample, emb, skip_sample)
+                else:
+                    sample, res_samples = block(sample, emb)
             down_block_res_samples += res_samples
 
-        sample = self.mid_block(sample, emb)
+        with span("unet.mid"):
+            sample = self.mid_block(sample, emb)
 
         # the skip chain restarts at None on the way up
         skip_sample = None
-        for block in self.up_blocks:
+        for i, block in enumerate(self.up_blocks):
             n_res = len(block.resnets)
             res_samples = down_block_res_samples[-n_res:]
             down_block_res_samples = down_block_res_samples[:-n_res]
-            if isinstance(block, SkipUpBlock2D):
-                sample, skip_sample = block(sample, res_samples, emb, skip_sample)
-            else:
-                sample = block(sample, res_samples, emb)
+            with span(f"unet.up.{i}"):
+                if isinstance(block, SkipUpBlock2D):
+                    sample, skip_sample = block(sample, res_samples, emb, skip_sample)
+                else:
+                    sample = block(sample, res_samples, emb)
 
-        sample = self.conv_out(self.conv_norm_out(sample))
-        if skip_sample is not None:
-            sample = sample + skip_sample
-        if cfg.time_embedding_type == "fourier":
-            sample = sample / timesteps.reshape(-1, 1, 1, 1).to(sample.dtype)
-        return sample.float()
+        with span("unet.out"):
+            sample = self.conv_out(self.conv_norm_out(sample))
+            if skip_sample is not None:
+                sample = sample + skip_sample
+            if cfg.time_embedding_type == "fourier":
+                sample = sample / timesteps.reshape(-1, 1, 1, 1).to(sample.dtype)
+            return sample.float()

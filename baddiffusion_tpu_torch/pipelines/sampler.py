@@ -27,6 +27,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from baddiffusion_tpu_torch.schedulers.karras_ve import sample_karras_ve
+from baddiffusion_tpu_torch.utils.profiling import span
 
 NoiseSource = Callable[[int], torch.Tensor]
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -76,20 +77,22 @@ def make_step_once(scheduler, model_fn: ModelFn, timesteps: torch.Tensor, draw: 
     """One reverse-diffusion step as a ``(sample, state, i) -> (sample,
     state)`` transition, shared by the whole chain and the segmented runner.
     ``timesteps`` is the state's table on the sample's device; ``draw(i)``
-    gives the step's noise, drawn only when the step uses it."""
+    gives the step's noise, drawn only when the step uses it. A step is the
+    span ``sampler.step`` (``utils/profiling.span``)."""
 
     def step_once(sample, state, i: int):
-        model_in = scheduler.scale_model_input(state, sample, i)
-        eps = model_fn(model_in, timesteps[i].expand(sample.shape[0])).to(sample.dtype)
-        noise = None
-        if scheduler.step_uses_noise(state, i):
-            if draw is None:
-                raise ValueError("this scheduler's step draws noise: the chain needs a generator or a noise_source")
-            noise = draw(i)
-        state, sample, _ = scheduler.step(state, eps, i, sample, noise)
-        if clip_each_step is not None:
-            sample = torch.clamp(sample, -clip_each_step, clip_each_step)
-        return sample, state
+        with span("sampler.step"):
+            model_in = scheduler.scale_model_input(state, sample, i)
+            eps = model_fn(model_in, timesteps[i].expand(sample.shape[0])).to(sample.dtype)
+            noise = None
+            if scheduler.step_uses_noise(state, i):
+                if draw is None:
+                    raise ValueError("this scheduler's step draws noise: the chain needs a generator or a noise_source")
+                noise = draw(i)
+            state, sample, _ = scheduler.step(state, eps, i, sample, noise)
+            if clip_each_step is not None:
+                sample = torch.clamp(sample, -clip_each_step, clip_each_step)
+            return sample, state
 
     return step_once
 

@@ -34,6 +34,7 @@ import torch
 
 from baddiffusion_tpu_torch import ops
 from baddiffusion_tpu_torch.pipelines.sampler import Chain
+from baddiffusion_tpu_torch.utils.profiling import span
 
 _capture_s: List[float] = []  # the seconds each chain captured in this process took, in order
 
@@ -74,6 +75,8 @@ class GraphedChain:
       each graph's captured launches are taken off the counters after its
       capture and added back at each replay, so the counters still count
       executed launches.
+    - Each segment's capture is the span ``graph.capture`` and each replay
+      ``graph.replay`` (``utils/profiling.span``).
     """
 
     def __init__(self, chain: Chain, model, init_shape, segment_steps: int,
@@ -98,7 +101,8 @@ class GraphedChain:
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(self.generator)
             before = ops.launch_counts()
-            with torch.cuda.graph(graph, pool=pool, stream=self.stream, capture_error_mode="thread_local"):
+            with span("graph.capture"), torch.cuda.graph(graph, pool=pool, stream=self.stream,
+                                                        capture_error_mode="thread_local"):
                 if carry is None:
                     carry = chain.start(self.static_init)
                 carry = chain.run(carry, model, draw, s, length)
@@ -115,7 +119,8 @@ class GraphedChain:
         self.static_init.copy_(init)
         self.generator.set_state(generator.get_state())
         for graph, launches in zip(self.graphs, self.launches):
-            graph.replay()
+            with span("graph.replay"):
+                graph.replay()
             ops.add_launch_counts(launches)
         generator.set_state(self.generator.get_state())
         sample, frames = self.chain.result(self.carry)

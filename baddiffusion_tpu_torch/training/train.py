@@ -7,6 +7,11 @@ f32; the UNet computes in its ``dtype`` (bf16 for speed); the loss and the
 gradients reduce in f32. With ``grad_accum=k`` the batch is k micro-batches
 whose gradients are summed, then divided by k, as the JAX ``lax.scan`` does.
 
+Under a recording profiler a step opens the spans ``train.step`` (whole),
+``train.forward`` and ``train.backward`` (each micro-batch) and
+``optim.update`` (the mean over the micro-batches, on several ranks the
+gradients' reduction, the clip and Adam; ``utils/profiling.span``).
+
 Where the JAX step is one pure jitted function, this one updates the state in
 place (the parameters, the Adam moments and the step count) and returns it,
 which spares a second copy of the parameters and moments. The draws of t and
@@ -41,6 +46,7 @@ from baddiffusion_tpu_torch.device import DeviceLike, resolve_device
 from baddiffusion_tpu_torch.parallel.distributed import take_rows
 from baddiffusion_tpu_torch.parallel.layout import ParallelLayout
 from baddiffusion_tpu_torch.training.optim import AdamState, Optimizer
+from baddiffusion_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -142,45 +148,50 @@ class TrainStep:
 
     def __call__(self, state: TrainState, image_u8, is_clean, generator: Optional[torch.Generator],
                  timesteps=None, noise=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        image_u8 = torch.as_tensor(image_u8).to(self.device)
-        is_clean = torch.as_tensor(is_clean).to(self.device)
-        k = self.grad_accum
-        b = image_u8.shape[0]
-        if b % k:
-            raise ValueError(f"batch {b} is not a multiple of grad_accum {k}")
-        micro = b // k
-        if timesteps is not None:
-            timesteps = take_rows(torch.as_tensor(timesteps).to(self.device, torch.long), self.data_index,
+        with span("train.step"):
+            image_u8 = torch.as_tensor(image_u8).to(self.device)
+            is_clean = torch.as_tensor(is_clean).to(self.device)
+            k = self.grad_accum
+            b = image_u8.shape[0]
+            if b % k:
+                raise ValueError(f"batch {b} is not a multiple of grad_accum {k}")
+            micro = b // k
+            if timesteps is not None:
+                timesteps = take_rows(torch.as_tensor(timesteps).to(self.device, torch.long), self.data_index,
+                                      self.data_count, k)
+            if noise is not None:
+                noise = take_rows(torch.as_tensor(noise).to(self.device, torch.float32), self.data_index,
                                   self.data_count, k)
-        if noise is not None:
-            noise = take_rows(torch.as_tensor(noise).to(self.device, torch.float32), self.data_index,
-                              self.data_count, k)
-        lay = self.layout
-        params = list(state.params.values())
-        working = params
-        if lay is not None and lay.sharded:
-            lay.gather_params(state.params)
-            working = lay.working
-        for p in working:
-            p.grad = None
-        loss_sum = torch.zeros((), device=self.device)
-        for i in range(k):
-            rows = slice(i * micro, (i + 1) * micro)
-            loss = self.loss(state, image_u8[rows], is_clean[rows], generator,
-                             None if timesteps is None else timesteps[rows], None if noise is None else noise[rows])
-            loss.backward()
-            loss_sum += loss.detach()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in working]
-        if k > 1:
-            torch._foreach_div_(grads, float(k))
-        loss, norm = loss_sum / k, None
-        if lay is not None:
-            grads = lay.reduce_grads(grads)
-            loss = lay.reduce_mean(loss)
-            norm = lay.grad_norm(grads)
-        grad_norm = self.optimizer.update(grads, state.opt_state, params, norm=norm)
-        state.step += 1
-        return state, {"loss": loss, "grad_norm": grad_norm}
+            lay = self.layout
+            params = list(state.params.values())
+            working = params
+            if lay is not None and lay.sharded:
+                lay.gather_params(state.params)
+                working = lay.working
+            for p in working:
+                p.grad = None
+            loss_sum = torch.zeros((), device=self.device)
+            for i in range(k):
+                rows = slice(i * micro, (i + 1) * micro)
+                with span("train.forward"):
+                    loss = self.loss(state, image_u8[rows], is_clean[rows], generator,
+                                     None if timesteps is None else timesteps[rows],
+                                     None if noise is None else noise[rows])
+                with span("train.backward"):
+                    loss.backward()
+                loss_sum += loss.detach()
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in working]
+            loss, norm = loss_sum / k, None
+            with span("optim.update"):
+                if k > 1:
+                    torch._foreach_div_(grads, float(k))
+                if lay is not None:
+                    grads = lay.reduce_grads(grads)
+                    loss = lay.reduce_mean(loss)
+                    norm = lay.grad_norm(grads)
+                grad_norm = self.optimizer.update(grads, state.opt_state, params, norm=norm)
+            state.step += 1
+            return state, {"loss": loss, "grad_norm": grad_norm}
 
 
 def make_train_step(

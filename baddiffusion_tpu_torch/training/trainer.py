@@ -21,6 +21,11 @@ counterpart of the JAX loop's ``AlignedStep``), the grids gather the
 parameters and rank 0 alone samples and writes them, and every rank joins
 the checkpoints (``training.checkpoint``). Only a rank with a ``tracker``
 logs.
+
+The loop's loss read and each save are the spans ``train.sync_loss`` and
+``ckpt.save`` (``utils/profiling.span``), in the ``profile_steps`` trace
+with the step's; each save's host seconds also go to the tracker as
+``ckpt_stall_s``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import time
 import traceback
 from typing import Callable, Optional
 
@@ -39,6 +45,7 @@ from baddiffusion_tpu_torch.parallel.distributed import barrier, is_primary
 from baddiffusion_tpu_torch.training.checkpoint import finish_async_saves, save_checkpoint
 from baddiffusion_tpu_torch.utils.image import save_image_grid
 from baddiffusion_tpu_torch.utils.logging import Log
+from baddiffusion_tpu_torch.utils.profiling import span
 
 
 def step_seed(seed: int, global_step: int) -> int:
@@ -136,9 +143,13 @@ def train_loop(
 
     def checkpoint(epoch: int) -> None:
         nonlocal last_saved_step
-        save_checkpoint(out_dir, state, epoch, make_pipeline, save_all_model_epochs, async_save=async_ckpt,
-                        layout=layout)
+        t0 = time.perf_counter()
+        with span("ckpt.save"):
+            save_checkpoint(out_dir, state, epoch, make_pipeline, save_all_model_epochs, async_save=async_ckpt,
+                            layout=layout)
         last_saved_step = global_step
+        if tracker is not None:
+            tracker.log({"ckpt_stall_s": time.perf_counter() - t0, "epoch": epoch}, step=global_step)
 
     cur_epoch = start_epoch
     rows = None if layout is None else layout.batch
@@ -153,7 +164,9 @@ def train_loop(
                         activities = [torch.profiler.ProfilerActivity.CPU]
                         if device.type == "cuda":
                             activities.append(torch.profiler.ProfilerActivity.CUDA)
-                        prof = torch.profiler.profile(activities=activities)
+                        # every thread: the feed's data.stage spans too
+                        every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+                        prof = torch.profiler.profile(activities=activities, experimental_config=every_thread)
                         prof.start()
                     if prof is not None and global_step == start_step + 2 + profile_steps:
                         _stop_profile(prof, device, out_dir)
@@ -161,8 +174,10 @@ def train_loop(
                     generator = torch.Generator(device).manual_seed(step_seed(seed, global_step))
                     state, metrics = train_step(state, batch["image_u8"], batch["is_clean"], generator)
                     if tracker is not None and global_step % log_every == 0:
+                        with span("train.sync_loss"):
+                            loss = float(metrics["loss"])
                         logs = {
-                            "loss": float(metrics["loss"]),
+                            "loss": loss,
                             "lr": float(lr_schedule(global_step)),
                             "epoch": epoch,
                             "step": global_step,

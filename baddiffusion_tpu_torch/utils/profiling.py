@@ -1,5 +1,17 @@
-"""Device time from a profiler trace (port of
+"""Spans, set-up counters and device time from a profiler trace (port of
 ``baddiffusion_tpu/utils/profiling.py``).
+
+The program's own instrumentation:
+
+- ``span(name)``: a context manager that is ``torch.profiler.record_function``
+  while a profiler records and one shared no-op context otherwise (no
+  allocation, no ``record_function`` entered). A recording profiler turns
+  spans on; nothing else does. The spans land in the profiler's trace beside
+  the device's events, on the same clock.
+- ``timed(name)``: a span that also adds one call and its host seconds to a
+  process-wide counter, profiler or not; for phases a process runs once or
+  a few times (the UNet's construction). ``counters()`` reads the counters,
+  ``reset_counters()`` clears them.
 
 The JAX module reads the HBM bytes a traced window moved from the TPU's
 xplane (``measure_hbm_traffic``, ``xplane_hbm_bytes``, ``hbm_top_ops``). On
@@ -13,10 +25,8 @@ measures device time:
   each host op's self time a call.
 - ``measure_device_time(run_once, steps)``: device ms a step, wall ms a step,
   the device's idle share and the split by kernel class (``KERNEL_CLASSES``:
-  K1, K2, K3, conv, matmul, other), with the JAX module's ``hbm_*`` fields
-  present and ``None``.
-- ``top_device_ops(stats, k, by="time")``: the counterpart of
-  ``hbm_top_ops``, by time.
+  K1, K2, K3, conv, matmul, other).
+- ``top_device_ops(stats, k)``: the counterpart of ``hbm_top_ops``, by time.
 
 On the card a profiler session now and then comes back with no device
 events at all (about one session in 200, at times several in a row);
@@ -32,11 +42,13 @@ card's.
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
 from typing import Callable, Dict, List, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -46,12 +58,16 @@ __all__ = [
     "EVENT_TIMED",
     "KERNEL_CLASSES",
     "PROFILE_ATTEMPTS",
+    "counters",
     "device_profile",
     "device_time_by_class",
     "format_by_class",
     "kernel_class",
     "measure_device_time",
+    "reset_counters",
+    "span",
     "time_ms",
+    "timed",
     "top_device_ops",
 ]
 
@@ -67,6 +83,56 @@ KERNEL_CLASSES = (
     ("matmul", ("nvjet", "gemm", "cublas", "aten::mm", "aten::addmm", "aten::bmm")),
 )
 OTHER = "other"
+
+_NOOP = contextlib.nullcontext()  # the one context every span returns while no profiler records
+_counters: Dict[str, List[float]] = {}  # name -> [calls, host seconds]
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler records, else the shared
+    no-op context. The gate is the process-wide flag a profiler sets when it
+    starts: ``torch.autograd._profiler_enabled()`` is per thread and reads
+    False on a thread started before the profiler (``device_prefetch``'s
+    feed), even under a profiler that records every thread."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NOOP
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """``span(name)`` that also adds one call and its host seconds
+    (``time.perf_counter``) to the counter ``name``, profiler or not."""
+    t0 = time.perf_counter()
+    try:
+        with span(name):
+            yield
+    finally:
+        entry = _counters.setdefault(name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += time.perf_counter() - t0
+
+
+def counters() -> Dict[str, Tuple[int, float]]:
+    """``{name: (calls, host seconds)}`` of every ``timed`` phase since the
+    process started or ``reset_counters`` ran."""
+    return {name: (int(calls), seconds) for name, (calls, seconds) in _counters.items()}
+
+
+def reset_counters() -> None:
+    _counters.clear()
+
+
+def _union_ms(intervals: List[Tuple[float, float]]) -> float:
+    """The length of the union of ``(start, end)`` intervals, in their unit:
+    work that overlaps on two streams counts once."""
+    total, cursor = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        start = max(start, cursor)
+        if end > start:
+            total += end - start
+            cursor = end
+    return total
 
 
 def time_ms(fn: Callable[[], object], reps: int = 20, repeats: int = 5) -> float:
@@ -96,6 +162,12 @@ def device_profile(fn: Callable[[], object], reps: int = 20, device: DeviceLike 
     kernels' own durations, free of launch gaps; host op times include the
     profiler's own cost. On the CPU the kernels are the aten ops' self
     times and the host ops the same."""
+    return _profile(fn, reps, device)[:4]
+
+
+def _profile(fn: Callable[[], object], reps: int, device: DeviceLike):
+    """``device_profile``'s four numbers and the device's busy ms a call: the
+    union of the device's intervals (on the CPU, the kernel ms again)."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -113,16 +185,18 @@ def device_profile(fn: Callable[[], object], reps: int = 20, device: DeviceLike 
         host = {e.key: e.self_cpu_time_total / 1e3 / reps for e in events
                 if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0}
         if not cuda:
-            return wall * 1e3 / reps, sum(host.values()), dict(host), host
+            return wall * 1e3 / reps, sum(host.values()), dict(host), host, sum(host.values())
         kernels = {e.key: e.self_device_time_total / 1e3 / reps for e in events
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
         if kernels:
-            return wall * 1e3 / reps, sum(kernels.values()), kernels, host
+            busy = _union_ms([(e.time_range.start, e.time_range.end) for e in prof.events()
+                              if e.device_type == DeviceType.CUDA]) / 1e3 / reps
+            return wall * 1e3 / reps, sum(kernels.values()), kernels, host, busy
         print(f"   (profiler session {attempt} recorded no device events; measuring again)")
     ms = time_ms(fn, reps=reps, repeats=1)
     print(f"   (no device events in {PROFILE_ATTEMPTS} profiler sessions: this window timed with CUDA events, "
           "launch gaps included)")
-    return ms, ms, {EVENT_TIMED: ms}, {}
+    return ms, ms, {EVENT_TIMED: ms}, {}, ms
 
 
 def kernel_class(name: str) -> str:
@@ -144,39 +218,29 @@ def measure_device_time(run_once: Callable[[], object], steps: int = 4, device: 
     """Profile ``steps`` calls of ``run_once`` (after one warm-up call) and
     return, a step: ``device_time_ms_per_step`` (the kernels' own time),
     ``wall_ms_per_step``, ``idle_share`` (the share of the wall time with no
-    kernel running), ``by_class`` (``device_time_by_class``) and ``kernels``
-    ({name: ms}, what ``top_device_ops`` reads), with ``device`` naming the
-    card (or ``"cpu"``: host times then).
-
-    ``hbm_gib_per_step``, ``hbm_bytes_per_step``, ``hbm_gbps_busy`` and
-    ``measured_flops_per_step`` keep the JAX module's names and are ``None``:
-    torch.profiler records no bytes or operations, and the tools that read
-    the card's counters (Nsight Compute, Nsight Systems) do not run where the
-    card is. A bound in bytes is computed from the shapes instead."""
+    kernel running: on the card one minus the union of the device's
+    intervals over the wall, so streams that overlap count once; on the CPU
+    one minus the summed op time over the wall), ``by_class``
+    (``device_time_by_class``) and ``kernels`` ({name: ms}, what
+    ``top_device_ops`` reads), with ``device`` naming the card (or
+    ``"cpu"``: host times then). torch.profiler records no bytes or
+    operations, so the JAX module's ``hbm_*`` fields have no counterpart."""
     dev = resolve_device(device)
-    wall, dev_ms, kernels, _ = device_profile(run_once, reps=steps, device=dev)
+    wall, dev_ms, kernels, _, busy = _profile(run_once, steps, dev)
     return {
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "device_time_ms_per_step": dev_ms,
         "wall_ms_per_step": wall,
-        "idle_share": max(0.0, 1.0 - dev_ms / wall) if wall > 0 else 0.0,
+        "idle_share": max(0.0, 1.0 - busy / wall) if wall > 0 else 0.0,
         "by_class": device_time_by_class(kernels),
         "kernels": kernels,
         "steps": steps,
-        "hbm_gib_per_step": None,
-        "hbm_bytes_per_step": None,
-        "hbm_gbps_busy": None,
-        "measured_flops_per_step": None,
     }
 
 
-def top_device_ops(stats: Dict, k: int = 25, by: str = "time") -> List[Tuple[str, str, float]]:
+def top_device_ops(stats: Dict, k: int = 25) -> List[Tuple[str, str, float]]:
     """The ``k`` kernels of a ``measure_device_time`` result that took the
-    most device time a step: rows of (kernel class, name, ms a step). Only
-    ``by="time"`` is measured; ``by="bytes"`` (``hbm_top_ops``'s default)
-    raises, since no byte count is."""
-    if by != "time":
-        raise ValueError(f"top_device_ops sorts by 'time' only (no byte count is measured on the card), got {by!r}")
+    most device time a step: rows of (kernel class, name, ms a step)."""
     rows = sorted(stats["kernels"].items(), key=lambda kv: -kv[1])[:k]
     return [(kernel_class(name), name, ms) for name, ms in rows]
 

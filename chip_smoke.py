@@ -62,7 +62,7 @@
    for 2 epochs; then the checkpoint restored into a fresh model and state
    and train_loop resumed to 3 epochs. The grids sample 50 steps, not 1000
    (phase 3 runs the 1000-step chain): a cut in depth only. Checked: every
-   logged loss finite, one metrics.jsonl record a step; every grid a
+   logged loss finite, one metrics.jsonl record a step and one a save; every grid a
    138x138x3 PNG; data.json's epoch and step; the restored parameters, Adam
    moments, count and step, and the HF export's weights, bitwise those of the
    live state at the save; the resumed loop's start and end steps; an async
@@ -1336,10 +1336,14 @@ def phase_trainer(dev, smi: str, bare_ms: float) -> tuple:
         saved = read_json(os.path.join(run_dir, "data.json"))
         check(saved == {"epoch": TRAINER_RESUME_EPOCHS - 1, "step": end2, "ckpt": "ckpt"},
               f"trainer: data.json after the resume {saved}")
-        records = read_jsonl(os.path.join(run_dir, "logs", "metrics.jsonl"))
+        logged = read_jsonl(os.path.join(run_dir, "logs", "metrics.jsonl"))
+        records = [r for r in logged if "loss" in r]
+        stalls = [r["ckpt_stall_s"] for r in logged if "ckpt_stall_s" in r]
         losses = [r["loss"] for r in records]
         check([r["_step"] for r in records] == list(range(steps1)) + list(range(start_step, end2)),
               f"trainer: metrics.jsonl steps {[r['_step'] for r in records]}")
+        check(len(stalls) == TRAINER_EPOCHS + TRAINER_RESUME_EPOCHS - start_epoch and min(stalls) > 0,
+              f"trainer: checkpoint stalls logged {stalls}")
         check(records[steps1]["epoch"] == start_epoch and bool(np.isfinite(losses).all()),
               f"trainer: resumed at epoch {records[steps1]['epoch']}, losses {losses}")
         print(f"   resumed run: epoch {start_epoch}, step {start_step} -> step {end2} in {wall2:.2f} s; "

@@ -533,10 +533,13 @@ def test_train_loop_on_the_card_matches_the_cpu(dev, tmp_path):
 
     class Log:
         def __init__(self):
-            self.records = []
+            self.records, self.stalls = [], []
 
         def log(self, metrics, step=None):
-            self.records.append((step, metrics["loss"]))
+            if "loss" in metrics:  # a step's record; the loop also logs each save's ckpt_stall_s
+                self.records.append((step, metrics["loss"]))
+            else:
+                self.stalls.append((step, metrics["ckpt_stall_s"]))
 
     sched = DDPMScheduler(DDPMConfig())
     schedule = sched.create_state().schedule
@@ -566,6 +569,7 @@ def test_train_loop_on_the_card_matches_the_cpu(dev, tmp_path):
         counts = ops.launch_counts()
         with open(os.path.join(out, "data.json")) as f:
             saved = json.load(f)
+        assert [s for s, _ in log.stalls] == [2] and log.stalls[0][1] > 0
         results[device] = (log.records, {k: p.detach().cpu() for k, p in state.params.items()}, counts, saved, n)
     (l_cpu, p_cpu, c_cpu, s_cpu, n_cpu), (l_card, p_card, c_card, s_card, n_card) = results["cpu"], results["cuda"]
     assert n_cpu == n_card == 2 and s_cpu == s_card == {"epoch": 0, "step": 2, "ckpt": "ckpt"}

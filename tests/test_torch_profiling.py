@@ -34,8 +34,9 @@ def test_measure_device_time_on_the_cpu():
     stats = profiling.measure_device_time(run_once, steps=3, device="cpu")
     assert len(calls) == 4  # one warm-up, three profiled
     assert stats["device"] == "cpu" and stats["steps"] == 3
-    for key in ("hbm_gib_per_step", "hbm_bytes_per_step", "hbm_gbps_busy", "measured_flops_per_step"):
-        assert key in stats and stats[key] is None
+    # no byte or operation count is measured: the JAX module's hbm_* fields have no counterpart
+    assert set(stats) == {"device", "device_time_ms_per_step", "wall_ms_per_step", "idle_share", "by_class",
+                          "kernels", "steps"}
     by = stats["by_class"]
     assert list(by) == ["K1", "K2", "K3", "conv", "matmul", "other"]
     assert by["conv"] > 0 and by["matmul"] > 0 and by["other"] > 0
@@ -56,7 +57,7 @@ def test_top_device_ops_by_time():
     assert times == sorted(times, reverse=True) and times[0] == max(stats["kernels"].values())
     assert all(cls == profiling.kernel_class(name) for cls, name, _ in rows)
     assert len(profiling.top_device_ops(stats, k=1000)) == len(stats["kernels"])
-    with pytest.raises(ValueError, match="no byte count"):
+    with pytest.raises(TypeError):  # by time alone: no byte count to sort by
         profiling.top_device_ops(stats, by="bytes")
 
 

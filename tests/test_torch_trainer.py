@@ -132,9 +132,18 @@ class Run:
         return global_step
 
 
-def _records(out_dir):
+def _log(out_dir):
     with open(os.path.join(out_dir, "logs", "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
+
+
+def _records(out_dir):
+    """The steps' records (the loop also logs each checkpoint's stall)."""
+    return [r for r in _log(out_dir) if "loss" in r]
+
+
+def _stalls(out_dir):
+    return [r for r in _log(out_dir) if "ckpt_stall_s" in r]
 
 
 def _assert_params_close(diffs, lr, steps):
@@ -260,6 +269,10 @@ def test_train_loop_matches_jax(tmp_path, monkeypatch):
     assert run.state.step == run.state.opt_state.count == int(jstate.step) == 8
     with open(os.path.join(port_dir, "data.json")) as f:
         assert json.load(f) == {"epoch": 1, "step": 8, "ckpt": "ckpt"}
+    # the one save's seconds, which the JAX loop does not log
+    stalls = _stalls(port_dir)
+    assert [(r["_step"], r["epoch"]) for r in stalls] == [(8, 1)] and stalls[0]["ckpt_stall_s"] > 0
+    assert len(_log(port_dir)) == 9
     for sub in ("samples", "backdoor_samples"):
         assert sorted(os.listdir(os.path.join(port_dir, sub))) == ["ep1.png", "ep1_t0.png"]
         assert _decode(os.path.join(port_dir, sub, "ep1.png")).shape == (38, 38, 3)
@@ -307,9 +320,15 @@ def test_sampling_failure_is_logged_and_training_goes_on(tmp_path, capsys):
 
 
 def test_profile_steps_write_a_trace(tmp_path):
+    """The operator's trace of a profiled step holds the loop's, the feed
+    consumer's, the step's, the optimizer's and the UNet's spans."""
     run = Run()
     run.loop(str(tmp_path / "run"), epochs=1, profile_steps=1)
     assert os.path.getsize(tmp_path / "run" / "profile" / "trace.json") > 0
+    with open(tmp_path / "run" / "profile" / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"train.step", "train.forward", "train.backward", "optim.update", "data.wait", "train.sync_loss",
+            "unet.forward", "unet.mid"} <= names
 
 
 def test_sample_grids_match_jax(tmp_path):
