@@ -809,15 +809,18 @@ bool bad_plan(int variant, int bh, int t_len, int d, int dtype, int threads, int
 // launch plan (variant, threads, rows a block, key tile, padded depth, dynamic
 // shared memory) is ops/attention.py `attention_plan`'s; one that does not
 // fit the shape is refused. Returns a cudaError_t code (0 on success).
+// Launches on `device`, the tensors' (bd::DeviceGuard), in `stream_ptr`.
 extern "C" int bd_attention_fwd(const void* q, const void* k, const void* v, void* o, int bh, int t_len, int d,
                                 float scale, int dtype, int variant, int threads, int rows, int key_tile,
-                                int depth, int smem_bytes, void* stream_ptr) {
+                                int depth, int smem_bytes, int device, void* stream_ptr) {
   if (bh <= 0 || t_len < 1 || t_len > kMaxT || d < 8 || d > 512 || d % 8 != 0 || (int64_t)bh * t_len > INT_MAX ||
       (dtype != bd::kFloat32 && dtype != bd::kBFloat16) ||
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) != 0 ||
       bad_plan(variant, bh, t_len, d, dtype, threads, rows, key_tile, depth, smem_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
+  const bd::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool f32 = dtype == bd::kFloat32;
   if (variant == kPacked) {

@@ -46,4 +46,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// An entry point's launches run on `device` (the tensors' device, given by
+// the caller), and the caller's current device is restored afterwards: a
+// cudaGetDevice, and a switch only where the two differ.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceGuard(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) {
+      err = cudaSetDevice(device);
+    } else {
+      prev = -1;
+    }
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 }  // namespace bd

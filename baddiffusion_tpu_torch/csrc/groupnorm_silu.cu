@@ -293,11 +293,12 @@ cudaError_t dispatch(const Launch& a, int vec, bool staged) {
 // smem_bytes of dynamic shared memory (exactly what the plan needs), staged
 // (1: the slab goes through shared memory, 0: x is read twice). Returns a
 // cudaError_t code (0 on success); a plan that does not fit the shape or
-// the pointers' alignment is cudaErrorInvalidValue.
+// the pointers' alignment is cudaErrorInvalidValue. Launches on `device`,
+// the tensors' (bd::DeviceGuard), in the stream `stream_ptr`.
 extern "C" int bd_groupnorm_silu_fwd(const void* x, const float* gamma, const float* beta, void* out,
                                      float* mean, float* rstd, int batch, int hw, int c, int groups,
                                      int slab_groups, int vec, int threads, int smem_bytes, int staged,
-                                     float eps, int dtype, void* stream_ptr) {
+                                     float eps, int dtype, int device, void* stream_ptr) {
   if (bd::gn::bad_shape(batch, hw, c, groups) || (mean == nullptr) != (rstd == nullptr) ||
       (dtype != bd::kFloat32 && dtype != bd::kBFloat16)) {
     return (int)cudaErrorInvalidValue;
@@ -315,6 +316,8 @@ extern "C" int bd_groupnorm_silu_fwd(const void* x, const float* gamma, const fl
       smem_bytes != smem_bytes_needed(hw, slab_c, slab_groups, elem_bytes, cols, threads, staged != 0)) {
     return (int)cudaErrorInvalidValue;
   }
+  const bd::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const Launch a{x, gamma, beta, out, mean, rstd, batch, hw, c, groups, slab_groups, threads, smem_bytes, eps,
                  static_cast<cudaStream_t>(stream_ptr)};
   return (int)(dtype == bd::kFloat32 ? dispatch<float>(a, vec, staged != 0)

@@ -386,11 +386,12 @@ cudaError_t dispatch(const Launch& a, int vec, bool staged) {
 // needs), staged (1: x and gout go through shared memory, 0: they are read
 // twice). Returns a cudaError_t code (0 on success); a plan that does not
 // fit the shape or the pointers' alignment is cudaErrorInvalidValue.
+// Launches on `device`, the tensors' (bd::DeviceGuard), in `stream_ptr`.
 extern "C" int bd_groupnorm_silu_bwd(const void* x, const float* gamma, const float* beta,
                                      const float* mean, const float* rstd, const void* gout, void* dx,
                                      float* partial, float* dgamma_dbeta, int batch, int hw, int c, int groups,
                                      int slab_groups, int vec, int threads, int smem_bytes, int staged, int dtype,
-                                     void* stream_ptr) {
+                                     int device, void* stream_ptr) {
   if (bd::gn::bad_shape(batch, hw, c, groups) || (int64_t)batch * 2 * c > 0x7fffffff ||
       (dtype != bd::kFloat32 && dtype != bd::kBFloat16) || (staged != 0 && staged != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -408,6 +409,8 @@ extern "C" int bd_groupnorm_silu_bwd(const void* x, const float* gamma, const fl
       smem_bytes != smem_bytes_needed(hw, slab_c, slab_groups, elem_bytes, cols, threads, staged != 0)) {
     return (int)cudaErrorInvalidValue;
   }
+  const bd::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const Launch a{x,     gamma, beta,  mean, rstd, gout, dx, partial, batch, hw, c, groups, slab_groups,
                  threads, smem_bytes, static_cast<cudaStream_t>(stream_ptr)};
   const cudaError_t err = dtype == bd::kFloat32 ? dispatch<float>(a, vec, staged != 0)

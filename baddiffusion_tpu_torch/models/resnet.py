@@ -9,9 +9,11 @@ upsampling and padding therefore all work on the channel-last axis and can
 never hand the GroupNorm kernel a tensor in NCHW-contiguous memory.
 
 Compute dtype as flax does it: parameters keep their own dtype (f32), and
-``Conv2d``/``Linear`` cast weight and bias to the dtype of the activation they
-are given, so a bf16 activation makes a bf16 product and autograd hands back
-f32 gradients through the cast. A weight already in that dtype is not copied.
+``Conv2d``/``Linear`` cast their weight (``Linear`` its bias too) to the
+dtype of the activation they are given, so a bf16 activation makes a bf16
+product and autograd hands back f32 gradients through the cast. A weight
+already in that dtype is not copied. A conv's bias is added in f32 to the
+product and rounded once (``ops.conv2d_bias_shift``, a kernel pair on the card).
 GroupNorm statistics are single-pass f32, clamped, with the affine applied in
 f32 from f32 γ/β (ops/groupnorm.py). Every GroupNorm that a SiLU follows goes
 through the fused kernels on the card (K1 forward, K2 backward).
@@ -27,16 +29,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from baddiffusion_tpu_torch.ops import groupnorm_plain, groupnorm_silu
+from baddiffusion_tpu_torch.ops import conv2d_bias_shift, groupnorm_plain, groupnorm_silu
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` on NHWC activations (weights stay OIHW), computed in the
-    activation's dtype."""
+    activation's dtype, with zero padding. cuDNN runs the conv without its
+    bias; the f32 bias, and ``row`` (a ``[B, C_out]`` shift in x's dtype: a
+    resnet's time embedding) where given, are then added in one pass in
+    place, summed in f32 and rounded once (``ops.conv2d_bias_shift``)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), self.bias.to(x.dtype))
-        return out.permute(0, 2, 3, 1)
+    def forward(self, x: torch.Tensor, row: Optional[torch.Tensor] = None) -> torch.Tensor:
+        bias = self.bias if self.bias.dtype is torch.float32 else self.bias.float()
+        return conv2d_bias_shift(x, self.weight, bias, row, self.stride, self.padding, self.dilation, self.groups)
 
 
 class Linear(nn.Linear):
@@ -257,16 +262,17 @@ class ResnetBlock2D(nn.Module):
         hidden = self.norm1(x)
         if self.resample is not None:
             x, hidden = self.resample(x), self.resample(hidden)
-        hidden = self.conv1(hidden)
-        if self.time_emb_proj is None or temb is None:
-            hidden = self.norm2(hidden) if not self.scale_shift else F.silu(self.norm2(hidden))
+        proj = None if self.time_emb_proj is None or temb is None else self.time_emb_proj(F.silu(temb))
+        # the default form's time projection rides on conv1's bias pass; rebinding ``hidden`` frees norm1's
+        # output before norm2 allocates its own
+        hidden = self.conv1(hidden, row=None if self.scale_shift else proj)
+        if not self.scale_shift:
+            hidden = self.norm2(hidden)
+        elif proj is None:
+            hidden = F.silu(self.norm2(hidden))
         else:
-            temb = self.time_emb_proj(F.silu(temb))[:, None, None, :]
-            if self.scale_shift:
-                scale, shift = temb.chunk(2, dim=-1)
-                hidden = F.silu(self.norm2(hidden) * (1 + scale) + shift)
-            else:
-                hidden = self.norm2(hidden + temb)
+            scale, shift = proj[:, None, None, :].chunk(2, dim=-1)
+            hidden = F.silu(self.norm2(hidden) * (1 + scale) + shift)
         hidden = self.conv2(self.dropout(hidden))
 
         if self.conv_shortcut is not None:

@@ -254,12 +254,15 @@ class UNet2DModel(nn.Module):
 
     def compute_copy(self, dtype: torch.dtype) -> "UNet2DModel":
         """A copy that computes in ``dtype`` with its conv and dense weights
-        cast to it once, so a forward pays no weight casts; the GroupNorm
-        affines (and the Fourier projection) stay f32, as in the flax model."""
+        (and dense biases) cast to it once, so a forward pays no weight casts;
+        the GroupNorm affines, the conv biases (added in f32 by
+        ``ops.bias_shift``) and the Fourier projection stay f32."""
         twin = copy.deepcopy(self)
         for module in twin.modules():
-            if isinstance(module, (Conv2d, Linear)):
+            if isinstance(module, Linear):
                 module.to(dtype)
+            elif isinstance(module, Conv2d):
+                module.weight.data = module.weight.data.to(dtype)
         twin.dtype = dtype
         return twin
 

@@ -1,6 +1,14 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch twin."""
 
 from baddiffusion_tpu_torch.ops.attention import attention, attention_backward_plain, attention_plain, attention_plan
+from baddiffusion_tpu_torch.ops.bias_shift import (
+    bias_shift,
+    bias_shift_backward,
+    bias_shift_backward_plain,
+    bias_shift_plain,
+    bias_shift_plan,
+    conv2d_bias_shift,
+)
 from baddiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_plain,
     groupnorm_silu,
@@ -13,7 +21,7 @@ from baddiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_stats_plain,
 )
 
-KERNELS = (groupnorm_silu, groupnorm_silu_backward, attention)
+KERNELS = (groupnorm_silu, groupnorm_silu_backward, attention, bias_shift, bias_shift_backward)
 
 
 def reset_launch_counts() -> None:
@@ -39,6 +47,12 @@ __all__ = [
     "attention_backward_plain",
     "attention_plain",
     "attention_plan",
+    "bias_shift",
+    "bias_shift_backward",
+    "bias_shift_backward_plain",
+    "bias_shift_plain",
+    "bias_shift_plan",
+    "conv2d_bias_shift",
     "groupnorm_plain",
     "groupnorm_silu",
     "groupnorm_silu_backward",

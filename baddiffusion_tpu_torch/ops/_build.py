@@ -24,9 +24,18 @@ import torch
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
-SOURCES = ("groupnorm_silu", "groupnorm_silu_bwd", "attention")
+SOURCES = ("groupnorm_silu", "groupnorm_silu_bwd", "attention", "bias_shift")
 # the kernels' dtype codes (csrc/common.cuh, ``bd::DType``)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def current_stream(device: int) -> int:
+    """The raw handle of CUDA device ``device``'s current stream, which an
+    entry point launches into: each takes the device too and makes it
+    current for its launches (csrc/common.cuh ``bd::DeviceGuard``), so a
+    launch costs the host no device switch in Python and no ``Stream``
+    object."""
+    return torch._C._cuda_getCurrentRawStream(device)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -224,7 +224,7 @@ def attention_backward_plain(q, k, v, scale: float, grad_out):
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("attention").bd_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -262,13 +262,12 @@ def _launch(q, k, v, out, scale: float, plan: AttentionPlan) -> None:
     """One launch of the kernel under ``plan`` on checked inputs; raises if
     the kernel refuses the plan or the launch fails."""
     b, h, t, d = q.shape
-    with torch.cuda.device(q.device):
-        rc = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * h, t, d, float(scale), _build.DTYPE_CODES[q.dtype], VARIANTS.index(plan.variant),
-            plan.threads, plan.rows, plan.key_tile, plan.depth, plan.smem_bytes,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    dev = q.get_device()
+    rc = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b * h, t, d, float(scale), _build.DTYPE_CODES[q.dtype], VARIANTS.index(plan.variant),
+        plan.threads, plan.rows, plan.key_tile, plan.depth, plan.smem_bytes, dev, _build.current_stream(dev),
+    )
     if rc != 0:
         raise RuntimeError(
             f"attention kernel launch failed: cudaError {rc} at shape {tuple(q.shape)} {q.dtype}, plan {plan}"

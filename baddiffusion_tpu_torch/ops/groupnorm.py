@@ -209,7 +209,7 @@ def groupnorm_silu_backward_plan(batch: int, hw: int, c: int, groups: int, elem_
 @functools.lru_cache(maxsize=None)
 def _forward_kernel():
     fn = _build.load("groupnorm_silu").bd_groupnorm_silu_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -217,7 +217,7 @@ def _forward_kernel():
 @functools.lru_cache(maxsize=None)
 def _backward_kernel():
     fn = _build.load("groupnorm_silu_bwd").bd_groupnorm_silu_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -263,14 +263,13 @@ def _launch_forward(x, weight, bias, num_groups: int, eps: float, save_stats: bo
         return out, *stats
     ptrs = x.data_ptr() | out.data_ptr()
     plan = groupnorm_silu_plan(b, h * w, c, num_groups, x.element_size(), min(16, ptrs & -ptrs))
-    with torch.cuda.device(x.device):
-        rc = _forward_kernel()(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            *(s.data_ptr() if s is not None else None for s in stats),
-            b, h * w, c, num_groups, plan.slab_groups, plan.vec, plan.threads, plan.smem_bytes,
-            int(plan.variant == "staged"), float(eps), _build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    dev = x.get_device()
+    rc = _forward_kernel()(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        *(s.data_ptr() if s is not None else None for s in stats),
+        b, h * w, c, num_groups, plan.slab_groups, plan.vec, plan.threads, plan.smem_bytes,
+        int(plan.variant == "staged"), float(eps), _build.DTYPE_CODES[x.dtype], dev, _build.current_stream(dev),
+    )
     if rc != 0:
         raise RuntimeError(f"groupnorm_silu kernel launch failed: cudaError {rc} at shape {tuple(x.shape)} {x.dtype}")
     groupnorm_silu.launches += 1
@@ -305,14 +304,13 @@ def groupnorm_silu_backward(x, weight, bias, mean, rstd, grad_out, num_groups: i
     plan = groupnorm_silu_backward_plan(b, h * w, c, num_groups, x.element_size(), min(16, ptrs & -ptrs))
     # the [2c] result (dγ then dβ), then the [b, 2c] per-row workspace
     buf = torch.empty((b + 1) * 2 * c, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _backward_kernel()(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            grad_out.data_ptr(), dx.data_ptr(), buf.data_ptr() + 2 * c * 4, buf.data_ptr(),
-            b, h * w, c, num_groups, plan.slab_groups, plan.vec, plan.threads, plan.smem_bytes,
-            int(plan.variant == "staged"), _build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    dev = x.get_device()
+    rc = _backward_kernel()(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        grad_out.data_ptr(), dx.data_ptr(), buf.data_ptr() + 2 * c * 4, buf.data_ptr(),
+        b, h * w, c, num_groups, plan.slab_groups, plan.vec, plan.threads, plan.smem_bytes,
+        int(plan.variant == "staged"), _build.DTYPE_CODES[x.dtype], dev, _build.current_stream(dev),
+    )
     if rc != 0:
         raise RuntimeError(
             f"groupnorm_silu backward kernel launch failed: cudaError {rc} at shape {tuple(x.shape)} {x.dtype}"

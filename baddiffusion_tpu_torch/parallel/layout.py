@@ -17,11 +17,12 @@ the collectives GSPMD inserts from the shardings).
     column-parallel: the identity on its input forward (an all-reduce of the
     input's gradient over ``model`` backward, since each rank's channels
     carry only their part of it), then the all-gather of the output channels
-    along C forward (this rank's slice of the gradient backward). The rest of
-    the network runs whole, the same on every model rank, so GroupNorm+SiLU
-    sees the whole tensor and K1/K2 run at their one-rank shapes. A GroupNorm
-    scale or bias split over ``model`` is all-gathered before the forward,
-    as an FSDP leaf is.
+    along C forward (this rank's slice of the gradient backward); a conv's
+    row shift (``Conv2d(x, row=...)``, a resnet's time embedding) is split
+    as its output channels are. The rest of the network runs whole, the
+    same on every model rank, so GroupNorm+SiLU sees the whole tensor and
+    K1/K2 run at their one-rank shapes. A GroupNorm scale or bias split over
+    ``model`` is all-gathered before the forward, as an FSDP leaf is.
 
 The global gradient norm for the clip sums each leaf's squared norm over
 the ranks that split it. Loss and gradients are the one-rank step's on the
@@ -156,7 +157,14 @@ class ParallelLayout:
             if p.shape[0] % m:
                 raise ValueError(f"{name}.{leaf}: {p.shape[0]} output channels do not split over {m} model ranks")
             setattr(module, leaf, nn.Parameter(p.detach().chunk(m, 0)[idx].clone(), requires_grad=p.requires_grad))
-        pre = module.register_forward_pre_hook(lambda mod, args: (_CopyToModel.apply(args[0], group),) + args[1:])
+
+        def column_input(mod, args, kwargs):
+            row = kwargs.get("row")
+            if row is not None:
+                kwargs = dict(kwargs, row=_CopyToModel.apply(row, group).chunk(m, -1)[idx].contiguous())
+            return (_CopyToModel.apply(args[0], group),) + args[1:], kwargs
+
+        pre = module.register_forward_pre_hook(column_input, with_kwargs=True)
         post = module.register_forward_hook(lambda mod, args, out: _GatherFromModel.apply(out, group, m, idx))
         self._hooks[name] = (pre.id, post.id)
 
@@ -268,6 +276,7 @@ class ParallelLayout:
         for name, (pre, post) in self._hooks.items():
             module = twin.get_submodule(name)
             del module._forward_pre_hooks[pre]
+            module._forward_pre_hooks_with_kwargs.pop(pre, None)
             del module._forward_hooks[post]
             for leaf in ("weight", "bias"):
                 shard = getattr(module, leaf, None)

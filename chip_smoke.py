@@ -33,7 +33,12 @@
    [16, 256, 256, 128] (f32); K3 at the envelope's long end, the VQ-VAE's
    [16, 1, 4096, 512] (f32 and bf16), the LDM UNet's heads of 32 at 32, 16
    and 8 px, and NCSN++ at 16x16 (these four in f32 too: the measure runs
-   f32). Where two calls differ, the differing
+   f32). Last, the conv bias-shift pair at the benchmark cells' shapes
+   (google/ddpm-ema-celebahq-256's 256² and 8² levels and conv_out at B=16
+   in bf16, google/ddpm-cifar10-32's measure at B=256 in f32): the forward
+   bitwise its twin and in place, the gradients against the twin and
+   bitwise over two calls, timed beside the aten passes it replaced and its
+   byte bound. Where two calls differ, the differing
    elements and a third call are printed before the failure.
 3. The sampling path: the full-width scratch UNet (113.7M parameters, 32 px)
    with seeded weights, saved and reloaded through the pipeline's HF layout,
@@ -51,9 +56,10 @@
    the timed train steps of phase 4, the two train_loop runs of phase 6,
    the zoo's chains of phase 7, the CLI and ANP runs of phase 8, the
    windows of phase 9; counters set to 0 just before each and read just
-   after): every GroupNorm+SiLU and attention call must have gone through
-   its kernel, 65 K1 and 6 K3 per scratch UNet forward and, in training and
-   ANP, 65 K2 per step (phase 9's counts are its own, below).
+   after): every GroupNorm+SiLU, attention and conv call must have gone
+   through its kernel, 65 K1, 6 K3 and 96 bias_shift per scratch UNet
+   forward and, in training and ANP, 65 K2 and 96 bias_shift_backward per
+   step (phase 9's counts are its own, below).
 6. The trainer path (run after phase 4): train_loop on the scratch UNet at
    bf16 compute with f32 parameters, on DatasetLoader("FAKE", 1024 images,
    32 px, batch 128, seed 0) poisoned BOX_14 -> CORNER at 0.1, with
@@ -138,9 +144,11 @@
    card against CPU at B=1; a 10-step SDE-VE chain in bf16 at B=2 (its
    default is 2000); 4 VE score steps at B=4 in bf16 on f32 parameters
    (losses and grad norms finite). Cuts in depth only. Launch counts over
-   each counted window, from the module calls the window made: (K1, K3) a
-   call of the LDM UNet (45, 16), the VQ encoder (17, 1) and decoder (23,
-   1), NCSN++ (105, 4), and a K2 for every K1 of a score step.
+   each counted window, from the module calls the window made: (K1, K3,
+   bias_shift) a call of the LDM UNet (45, 16, 67), the VQ encoder with its
+   quant_conv (17, 1, 23) and decoder with its post_quant_conv (23, 1, 29),
+   NCSN++ (105, 4, 146), and a K2 for every K1 and a bias_shift_backward
+   for every conv of a score step.
 
 10. The reference's own recipes (run last). (a) google/ddpm-cifar10-32 at
    full width (``model_configs.DDPM_CIFAR10_32``, 35.7M), staged as a seeded
@@ -160,9 +168,10 @@
    finite scores checked (not the attack's outcome, which needs the full
    length); profiled windows of the attack model's train step and chain.
    Launch counts over each counted window from its UNet forwards, with and
-   without a backward: (K1, K3) a forward (45, 6), (65, 6) and, for both
-   demo models, (35, 6), derived from the configs, and a K2 for every K1
-   of a forward with a backward. Profiling goes through
+   without a backward: (K1, K3, bias_shift) a forward (45, 6, 65), (65, 6,
+   96), the attack demo model's (35, 6, 51) and the score model's (35, 6,
+   50), derived from the configs, and a K2 for every K1 and a
+   bias_shift_backward for every conv of a forward with a backward. Profiling goes through
    ``baddiffusion_tpu_torch.utils.profiling``.
 
 11. Scale-out (run last), the full-width scratch UNet at B=128. (a) One
@@ -234,6 +243,7 @@ from baddiffusion_tpu_torch.metrics import fid, mse, proxy_extractor, ssim
 from baddiffusion_tpu_torch.models import (
     DEFAULT_SCRATCH_CONFIG,
     AttentionBlock,
+    Conv2d,
     Decoder,
     Encoder,
     GroupNorm,
@@ -331,6 +341,7 @@ ATTN_LATENT_SHAPES = {(16, 1, 4096, 512): None, (16, 14, 1024, 32): None,
                       (16, 21, 64, 32): torch.bfloat16, (4, 32, 256, 8): None}
 GN_PER_FORWARD = sum(GN_SHAPES.values())
 ATTN_PER_FORWARD = sum(ATTN_SHAPES.values())
+CONV_PER_FORWARD = 96  # the scratch UNet's Conv2d modules, each a bias_shift launch a forward (its backward one)
 TOL = {torch.float32: dict(atol=1e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 
 SAMPLE_BATCH = 16
@@ -363,17 +374,21 @@ CLI_STEPS = 50  # DDIM steps of the grids and the measure (the reference measure
 CLI_MEASURE_N, CLI_EVAL_BATCH = 256, 128
 ANP_MEASURE_N, ANP_BUDGET = 128, 4.0
 INCEPTION_CHECK_SHAPE, INCEPTION_BATCH = (16, 32, 32, 3), 128
-# phase 9: LDM-CELEBA-HQ-256 and NCSN++ 256 px at full width, cut in depth; the (K1, K3) launches of one
-# call of each module, derived from the configs (two K1 a resnet, one a fused output norm, one K3 an attention)
+# phase 9: LDM-CELEBA-HQ-256 and NCSN++ 256 px at full width, cut in depth; the (K1, K3, bias_shift) launches
+# of one call of each module, derived from the configs (two K1 a resnet, one a fused output norm, one K3 an
+# attention, one bias_shift a conv)
 LDM_BATCH, LDM_STEPS, LDM_MEASURE_N, LDM_FAKE_SIZE = 16, 50, 16, 128
 GPU = "0"  # phase 9's and 10's command lines' --gpu
-LDM_KERNEL_CALLS = {"UNet2DModel": (45, 16), "Encoder": (17, 1), "Decoder": (23, 1)}
-NCSNPP_KERNEL_CALLS = (105, 4)
+# the VQ-VAE's encoder with its quant_conv, its decoder with its post_quant_conv
+LDM_KERNEL_CALLS = {"UNet2DModel": (45, 16, 67), "Encoder": (17, 1, 23), "Decoder": (23, 1, 29)}
+NCSNPP_KERNEL_CALLS = (105, 4, 146)
 NCSNPP_CHAIN_BATCH, NCSNPP_CHAIN_STEPS = 2, 10
 NCSNPP_TRAIN_BATCH, NCSNPP_TRAIN_STEPS, NCSNPP_LR = 4, 4, 2e-5  # the reference's 256 px scratch rate
 # phase 10: google/ddpm-cifar10-32 and google/ddpm-ema-celebahq-256 at full width, and the demos, cut in depth;
-# the (K1, K3) launches a forward, derived from the configs (K2: one for every K1 of a train, ANP or score step)
-PUBLISHED_KERNEL_CALLS = {"DDPM-CIFAR10-32": (45, 6), "DDPM-EMA-CELEBAHQ-256": (65, 6), "demo": (35, 6)}
+# the (K1, K3, bias_shift) launches a forward, derived from the configs (K2: one for every K1 of a train, ANP or
+# score step; bias_shift_backward one for every conv of those)
+PUBLISHED_KERNEL_CALLS = {"DDPM-CIFAR10-32": (45, 6, 65), "DDPM-EMA-CELEBAHQ-256": (65, 6, 96),
+                          "attack demo": (35, 6, 51), "score demo": (35, 6, 50)}
 CIFAR_FAKE_SIZE, CHAIN_STEPS, PROFILE_CHAIN_STEPS = 512, 50, 10  # the CLI fine-tune takes 4 steps at batch 128
 CELEBA_CHAIN_BATCH, CELEBA_MICRO, CELEBA_ACCUM, CELEBA_TRAIN_STEPS = 8, 4, 16, 2  # bench.py's 256 px recipe
 ATTACK_STEPS, DEMO_N, DEMO_CHAIN, ANP_DEMO_STEPS = 300, 16, 100, 20
@@ -725,6 +740,64 @@ def k2_shape(rec, dev, gen, b: int, h: int, w: int, c: int, dtype, label: str, m
         tols=[TOL[dtype], sum_tol(ref[1]), sum_tol(ref[2])], time_dtype=time_dtype,
     )
     check_k2_autograd_and_repeatable(label, x, weight, bias, ct, got)
+
+
+# the conv bias shift at the cells' shapes: (B, C, H, W, dtype, with the time-embedding row); the first is
+# google/ddpm-ema-celebahq-256's 256² level at B=16, the shape PERF.md's kernel table times
+SHIFT_SHAPES = [(16, 128, 256, 256, torch.bfloat16, True), (16, 128, 256, 256, torch.bfloat16, False),
+                (16, 512, 8, 8, torch.bfloat16, True), (16, 3, 256, 256, torch.bfloat16, False),
+                (256, 128, 32, 32, torch.float32, True)]
+
+
+def phase_bias_shift(dev, gen) -> dict:
+    print("-- the conv bias shift (bias_shift_fwd_kernel; bias_shift_bwd_kernel + bias_shift_fold_kernel) vs its "
+          "plain twin: the forward bitwise (the same f32 sum, one rounding), in place; the gradients f32 sums "
+          "in another order, atol 1e-4·max|ref| (the row's also one bf16 rounding) and bitwise over two calls; "
+          "library: the aten passes it replaces (the bias add_ after cuDNN's conv, the time embedding's add; the "
+          "gradients' sums); bound: bytes at 3.35 TB/s")
+    rec = KernelRecord("bias_shift", "baddiffusion_tpu_torch/csrc/bias_shift.cu",
+                       "none (XLA fuses the bias into the conv); aten::add_/add and aten::sum", "aten",
+                       per="256² conv at B=16")
+    for b, c, h, w, dtype, with_row in SHIFT_SHAPES:
+        y0 = torch.randn(b, c, h, w, generator=gen, device=dev).to(dtype)
+        y0 = y0.contiguous(memory_format=torch.channels_last)
+        bias = 0.02 * torch.randn(c, generator=gen, device=dev)
+        row = torch.randn(b, c, generator=gen, device=dev).to(dtype) if with_row else None
+        yk, yp, yl = y0.clone(), y0.clone(), y0.clone()
+        b_lib = bias.to(dtype)[None, :, None, None]
+        r_lib = None if row is None else row[:, :, None, None]
+        label = f"[{b},{c},{h},{w}]{' +row' if with_row else ''}"
+        print(f"   {label} plan: {ops.bias_shift_plan(b, h * w, c, y0.element_size(), 16)}")
+        rec.shape(
+            f"fwd {label}", int(label == "[16,128,256,256] +row"), dtype,
+            lambda: ops.bias_shift(yk, bias, row), lambda: ops.bias_shift_plain(yp, bias, row),
+            lambda: yl.add_(b_lib) if r_lib is None else yl.add_(b_lib) + r_lib,
+            n_bytes=2 * y0.numel() * y0.element_size(), n_ops=2 * y0.numel(), tols=[dict(atol=0.0, rtol=0.0)],
+            time_dtype=dtype,
+        )
+        t = y0.clone()
+        check(ops.bias_shift(t, bias, row) is t and torch.equal(t, ops.bias_shift_plain(y0.clone(), bias, row)),
+              f"bias_shift {label}: not in place or not the twin's bits")
+        g = y0
+        row_dtype = dtype if with_row else None
+        ref = ops.bias_shift_backward_plain(g, row_dtype)
+        tols = [sum_tol(ref[0])] + ([dict(atol=1e-4 * ref[1].abs().max().item(), rtol=2 ** -7)] if with_row else [])
+        got = rec.shape(
+            f"bwd {label}", 0, dtype,
+            lambda: ops.bias_shift_backward(g, row_dtype)[:1 + with_row],
+            lambda: ops.bias_shift_backward_plain(g, row_dtype)[:1 + with_row],
+            lambda: (g.sum(dim=(0, 2, 3)), g.sum(dim=(2, 3))) if with_row else g.sum(dim=(0, 2, 3)),
+            n_bytes=g.numel() * g.element_size(), n_ops=g.numel(), tols=tols, time_dtype=dtype,
+        )
+        check_repeatable(f"bias_shift backward {label}", got,
+                         lambda: ops.bias_shift_backward(g, row_dtype)[:1 + with_row])
+        del y0, yk, yp, yl, g, t
+    tot = rec.tot
+    b_ms, b_by = bound_ms(tot["bytes"], tot["ops"], torch.bfloat16)
+    print(f"   per 256² conv of google/ddpm-ema-celebahq-256 at B=16 (bf16, its time-embedding row): kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, aten {tot['library_ms']:.4f} ms, bound {b_ms:.5f} ms")
+    return dict(rec.entry, max_abs_err=rec.err, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=tot["library_ms"])
 
 
 def attn_rate(plan, dtype):
@@ -1677,12 +1750,22 @@ def phase_cli(dev, smi: str) -> tuple:
     return steps, sampled, counts, segment_runs
 
 
-def kernel_calls(module) -> tuple:
-    """(K1, K3) launches one call of ``module`` makes, from its built
-    modules: each GroupNorm that fuses its SiLU runs K1 once, each attention
-    block K3 once."""
-    return (sum(isinstance(m, GroupNorm) and m.silu for m in module.modules()),
-            sum(isinstance(m, AttentionBlock) for m in module.modules()))
+def kernel_calls(*modules) -> tuple:
+    """(K1, K3, bias_shift) launches one call of ``modules`` together makes,
+    from their built modules: each GroupNorm that fuses its SiLU runs K1
+    once, each attention block K3 once, each Conv2d the bias shift once."""
+    found = [m for module in modules for m in module.modules()]
+    return (sum(isinstance(m, GroupNorm) and m.silu for m in found), sum(isinstance(m, AttentionBlock) for m in found),
+            sum(isinstance(m, Conv2d) for m in found))
+
+
+def scratch_launches(forwards: int, backwards: int = 0) -> dict:
+    """The launch counts of ``forwards`` scratch-UNet forwards, ``backwards``
+    of them with a backward (each K1 call then has its K2, each conv its
+    bias_shift_backward)."""
+    return {"groupnorm_silu": GN_PER_FORWARD * forwards, "groupnorm_silu_backward": GN_PER_FORWARD * backwards,
+            "attention": ATTN_PER_FORWARD * forwards, "bias_shift": CONV_PER_FORWARD * forwards,
+            "bias_shift_backward": CONV_PER_FORWARD * backwards}
 
 
 class CallCounter:
@@ -1705,13 +1788,13 @@ class CallCounter:
         self.handle.remove()
 
 
-def want_launches(calls: dict, per: dict, steps: int = 0, step_k1: int = 0, step_k3: int = 0) -> dict:
-    """The launch counts a run should show: ``per[name] = (K1, K3)`` for each
-    counted module call, and ``steps`` train steps of ``step_k1`` K1 (each
-    with its K2) and ``step_k3`` K3."""
-    k1 = sum(n * per[name][0] for name, n in calls.items()) + steps * step_k1
-    k3 = sum(n * per[name][1] for name, n in calls.items()) + steps * step_k3
-    return {"groupnorm_silu": k1, "groupnorm_silu_backward": steps * step_k1, "attention": k3}
+def want_launches(calls: dict, per: dict, steps: int = 0, step: tuple = (0, 0, 0)) -> dict:
+    """The launch counts a run should show: ``per[name] = (K1, K3, convs)``
+    for each counted module call, and ``steps`` train steps of ``step`` =
+    (K1, K3, convs) (each K1 with its K2, each conv with its backward)."""
+    k1, k3, convs = (sum(n * per[name][i] for name, n in calls.items()) + steps * step[i] for i in range(3))
+    return {"groupnorm_silu": k1, "groupnorm_silu_backward": steps * step[0], "attention": k3, "bias_shift": convs,
+            "bias_shift_backward": steps * step[2]}
 
 
 def check_card_vs_cpu(label: str, got: torch.Tensor, want: torch.Tensor) -> None:
@@ -1755,13 +1838,14 @@ def phase_latent(dev, smi: str) -> tuple:
             check(sd_a.keys() == sd_b.keys() and all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a),
                   f"{name} weights changed through stage_ldm/get_pretrained")
         del staged
-        per = {"UNet2DModel": kernel_calls(pipe.unet), "Encoder": kernel_calls(pipe.vqvae.encoder),
-               "Decoder": kernel_calls(pipe.vqvae.decoder)}
+        per = {"UNet2DModel": kernel_calls(pipe.unet),
+               "Encoder": kernel_calls(pipe.vqvae.encoder, pipe.vqvae.quant_conv),
+               "Decoder": kernel_calls(pipe.vqvae.decoder, pipe.vqvae.post_quant_conv)}
         check(per == LDM_KERNEL_CALLS, f"LDM kernel calls per module call {per}, designed {LDM_KERNEL_CALLS}")
         n_unet = sum(p.numel() for p in pipe.unet.parameters())
         n_vq = sum(p.numel() for p in pipe.vqvae.parameters())
         print(f"   staged ({stage_s:.1f} s) and reloaded through factory.get_pretrained, weights exact: UNet {n_unet} "
-              f"and VQ-VAE {n_vq} parameters; (K1, K3) a call: {per}")
+              f"and VQ-VAE {n_vq} parameters; (K1, K3, convs) a call: {per}")
 
         # f32 on the card against the CPU's plain path, B=1
         cpu = LDMPipeline.from_pretrained(run, device="cpu")
@@ -1865,7 +1949,7 @@ def phase_latent(dev, smi: str) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     unet = UNet2DModel(cfg, device=dev, generator=torch.Generator().manual_seed(93))
     per = {"UNet2DModel": kernel_calls(unet)}
-    check(per["UNet2DModel"] == NCSNPP_KERNEL_CALLS, f"NCSN++ (K1, K3) a forward {per}, designed {NCSNPP_KERNEL_CALLS}")
+    check(per["UNet2DModel"] == NCSNPP_KERNEL_CALLS, f"NCSN++ (K1, K3, convs) a forward {per}, designed {NCSNPP_KERNEL_CALLS}")
     cpu_unet = UNet2DModel(cfg, device="cpu")
     cpu_unet.load_state_dict(unet.state_dict())
     g = torch.Generator().manual_seed(94)
@@ -1927,9 +2011,8 @@ def phase_latent(dev, smi: str) -> tuple:
     check(bool(np.isfinite(losses + norms).all()) and state.step == NCSNPP_TRAIN_STEPS + 1,
           f"NCSN++ score steps: losses {losses}, grad norms {norms}")
     check(calls.counts == {"UNet2DModel": NCSNPP_TRAIN_STEPS}, f"NCSN++ score steps made {calls.counts}")
-    k1, k3 = per["UNet2DModel"]
     runs.append(("NCSN++ score steps", f"{NCSNPP_TRAIN_STEPS} steps", counts,
-                 want_launches({}, per, NCSNPP_TRAIN_STEPS, k1, k3)))
+                 want_launches({}, per, NCSNPP_TRAIN_STEPS, per["UNet2DModel"])))
     step_ms = [s_.elapsed_time(e) for s_, e in records]
     print(f"   VE score steps B={NCSNPP_TRAIN_BATCH} (bf16 compute, f32 parameters, Adam lr {NCSNPP_LR}): losses "
           f"{[round(v, 4) for v in losses]}, grad norms {[round(v, 4) for v in norms]}; median "
@@ -1966,9 +2049,10 @@ class ForwardCounter:
         return f"{self.grad} forwards with a backward, {self.nograd} without"
 
     def want(self, per: tuple) -> dict:
-        k1, k3 = per
-        return {"groupnorm_silu": k1 * (self.grad + self.nograd), "groupnorm_silu_backward": k1 * self.grad,
-                "attention": k3 * (self.grad + self.nograd)}
+        k1, k3, convs = per
+        n = self.grad + self.nograd
+        return {"groupnorm_silu": k1 * n, "groupnorm_silu_backward": k1 * self.grad, "attention": k3 * n,
+                "bias_shift": convs * n, "bias_shift_backward": convs * self.grad}
 
 
 def counted(runs: list, path: str, per: tuple, fn):
@@ -2067,8 +2151,8 @@ def phase_published_cifar10(dev, smi: str, root: str, runs: list) -> None:
     per = kernel_calls(unet)
     n_params = sum(p.numel() for p in unet.parameters())
     check(per == PUBLISHED_KERNEL_CALLS["DDPM-CIFAR10-32"] and n_params == 35_746_307,
-          f"DDPM-CIFAR10-32: {n_params} parameters, (K1, K3) a forward {per}")
-    print(f"   staged and reloaded through factory.get_pretrained, weights exact: {n_params} parameters; (K1, K3) a "
+          f"DDPM-CIFAR10-32: {n_params} parameters, (K1, K3, convs) a forward {per}")
+    print(f"   staged and reloaded through factory.get_pretrained, weights exact: {n_params} parameters; (K1, K3, convs) a "
           f"forward {per}, K2 {per[0]} a backward")
     cpu_unet = UNet2DModel(cfg, device="cpu")
     cpu_unet.load_state_dict(unet.state_dict())
@@ -2125,7 +2209,7 @@ def phase_published_celebahq(dev, smi: str, runs: list) -> None:
     per = kernel_calls(unet)
     n_params = sum(p.numel() for p in unet.parameters())
     check(per == PUBLISHED_KERNEL_CALLS["DDPM-EMA-CELEBAHQ-256"] and n_params == 113_673_219,
-          f"DDPM-EMA-CELEBAHQ-256: {n_params} parameters, (K1, K3) a forward {per}")
+          f"DDPM-EMA-CELEBAHQ-256: {n_params} parameters, (K1, K3, convs) a forward {per}")
     cpu_unet = UNet2DModel(cfg, device="cpu")
     cpu_unet.load_state_dict(unet.state_dict())
     g = torch.Generator().manual_seed(105)
@@ -2182,8 +2266,8 @@ def phase_published_demos(dev, smi: str, root: str, runs: list) -> None:
     torch.cuda.reset_peak_memory_stats()
     models = (("attack", attack_demo.ATTACK_MODEL_CONFIG), ("score", train_sde_ve.SCORE_MODEL_CONFIG))
     per = {name: kernel_calls(UNet2DModel(config, device="meta")) for name, config in models}
-    check(per == {"attack": PUBLISHED_KERNEL_CALLS["demo"], "score": PUBLISHED_KERNEL_CALLS["demo"]},
-          f"the demo models' (K1, K3) a forward {per}")
+    check(per == {"attack": PUBLISHED_KERNEL_CALLS["attack demo"], "score": PUBLISHED_KERNEL_CALLS["score demo"]},
+          f"the demo models' (K1, K3, convs) a forward {per}")
     attack_dir = os.path.join(root, "attack_demo_out")
     res, fc, wall = counted(runs, "attack demo", per["attack"], lambda: attack_demo.run(
         ATTACK_STEPS, attack_dir, n=DEMO_N, sampling_steps=DEMO_CHAIN, device=dev))
@@ -2404,7 +2488,7 @@ def scaleout_rank_cli(rank: int, root: str, gpu: str) -> dict:
                       "--gpu", gpu, "--output_dir", os.path.join(root, "anp")])
         wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return {"counts": ops.launch_counts(), "want": fc.want((GN_PER_FORWARD, ATTN_PER_FORWARD)), "what": fc.what(),
+    return {"counts": ops.launch_counts(), "want": fc.want((GN_PER_FORWARD, ATTN_PER_FORWARD, CONV_PER_FORWARD)), "what": fc.what(),
             "wall_cli": wall_cli, "wall": wall, "run": run}
 
 
@@ -2476,9 +2560,7 @@ def phase_scaleout(dev, smi: str) -> list:
                     f"bare step's {float(want[0])!r} {float(want[1])!r}, parameters bitwise equal: {same}")
         print(f"   (a) one NCCL rank, bf16 step at B={BATCH}: loss {float(m['loss']):.6f}, grad norm "
               f"{float(m['grad_norm']):.6f}, parameters: bitwise the bare step's")
-        runs.append(("scale-out (a), one NCCL rank", "1 train step", counts,
-                     {"groupnorm_silu": GN_PER_FORWARD, "groupnorm_silu_backward": GN_PER_FORWARD,
-                      "attention": ATTN_PER_FORWARD}))
+        runs.append(("scale-out (a), one NCCL rank", "1 train step", counts, scratch_launches(1, 1)))
         del state, step, layout, want
         torch.cuda.empty_cache()
 
@@ -2498,8 +2580,6 @@ def phase_scaleout(dev, smi: str) -> list:
         t0 = time.perf_counter()
         resume = launch_ranks("resume", root, dev)
         wall_resume = time.perf_counter() - t0
-        per_step = {"groupnorm_silu": GN_PER_FORWARD, "groupnorm_silu_backward": GN_PER_FORWARD,
-                    "attention": ATTN_PER_FORWARD}
         for name, mp, sharding in SCALE_LAYOUTS:
             for label, results in (("train", train), ("resume", resume)):
                 recs = [r[name] for r in results]
@@ -2508,7 +2588,7 @@ def phase_scaleout(dev, smi: str) -> list:
                 for r, rec in enumerate(recs):
                     n = rec["steps"][1] - rec["steps"][0]
                     runs.append((f"scale-out (b) {name} {label}, rank {r}", f"{n} train steps on {BATCH // SCALE_RANKS}"
-                                 " rows", rec["counts"], {k: v * n for k, v in per_step.items()}))
+                                 " rows", rec["counts"], scratch_launches(n, n)))
             got, back = train[0][name], resume[0][name]
             check(back["bf16"] == got["bf16"][SCALE_SAVE_AFTER:] and back["digest"] == got["digest"],
                   f"(b) {name}: resumed step {back['bf16']} and parameters, uninterrupted {got['bf16']}")
@@ -2651,8 +2731,7 @@ def phase_segments(dev, smi: str) -> list:
     counts = ops.launch_counts()
     captured = segments.captures()
     want_fwd = forwards[0] + len(captured)
-    want = {"groupnorm_silu": GN_PER_FORWARD * want_fwd, "groupnorm_silu_backward": 0,
-            "attention": ATTN_PER_FORWARD * want_fwd}
+    want = scratch_launches(want_fwd)
     for b in (SAMPLE_BATCH, BATCH):
         print(f"   (d) B={b}, {SEG_STEPS}-step DDPM: eager {times[f'eager_{b}'] / SEG_STEPS * 1e3:.3f} ms/step, graphs "
               f"replayed {times[f'replay_{b}'] / SEG_STEPS * 1e3:.3f} ms/step (segments of 25), first call with "
@@ -2741,8 +2820,7 @@ def segment_measure(root: str, run: str, smi: str) -> list:
           f"read-back); {captured} chain captured; {wall:.1f} s; on {smi}")
     want_fwd = forwards + captured
     return [("segment-mode measure", f"{want_fwd} UNet forwards ({captured} capture warm-up)", counts,
-             {"groupnorm_silu": GN_PER_FORWARD * want_fwd, "groupnorm_silu_backward": 0,
-              "attention": ATTN_PER_FORWARD * want_fwd})]
+             scratch_launches(want_fwd))]
 
 
 def main() -> int:
@@ -2753,7 +2831,8 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = phase_environment()
     gen = torch.Generator(dev).manual_seed(0)
-    kernels = [phase_groupnorm(dev, gen), phase_groupnorm_backward(dev, gen), phase_attention(dev, gen)]
+    kernels = [phase_groupnorm(dev, gen), phase_groupnorm_backward(dev, gen), phase_attention(dev, gen),
+               phase_bias_shift(dev, gen)]
     forwards, sampling = phase_slice(dev, smi)
     zoo_fwd, zoo = phase_zoo(dev, smi)
     steps, training, bare_ms = phase_train(dev, smi)
@@ -2763,23 +2842,13 @@ def main() -> int:
                    + phase_segments(dev, smi) + segment_runs)
 
     for path, n, counts, want in (
-        ("sampling", f"{forwards} UNet forwards", sampling,
-         {"groupnorm_silu": GN_PER_FORWARD * forwards, "groupnorm_silu_backward": 0,
-          "attention": ATTN_PER_FORWARD * forwards}),
-        ("sampler zoo", f"{zoo_fwd} UNet forwards", zoo,
-         {"groupnorm_silu": GN_PER_FORWARD * zoo_fwd, "groupnorm_silu_backward": 0,
-          "attention": ATTN_PER_FORWARD * zoo_fwd}),
-        ("training", f"{steps} train steps", training,
-         {"groupnorm_silu": GN_PER_FORWARD * steps, "groupnorm_silu_backward": GN_PER_FORWARD * steps,
-          "attention": ATTN_PER_FORWARD * steps}),
+        ("sampling", f"{forwards} UNet forwards", sampling, scratch_launches(forwards)),
+        ("sampler zoo", f"{zoo_fwd} UNet forwards", zoo, scratch_launches(zoo_fwd)),
+        ("training", f"{steps} train steps", training, scratch_launches(steps, steps)),
         ("trainer", f"{loop_steps} train steps and {loop_sampled} sampling forwards", trainer_counts,
-         {"groupnorm_silu": GN_PER_FORWARD * (loop_steps + loop_sampled),
-          "groupnorm_silu_backward": GN_PER_FORWARD * loop_steps,
-          "attention": ATTN_PER_FORWARD * (loop_steps + loop_sampled)}),
+         scratch_launches(loop_steps + loop_sampled, loop_steps)),
         ("CLI and ANP", f"{cli_steps} train and ANP steps and {cli_sampled} sampling forwards", cli_counts,
-         {"groupnorm_silu": GN_PER_FORWARD * (cli_steps + cli_sampled),
-          "groupnorm_silu_backward": GN_PER_FORWARD * cli_steps,
-          "attention": ATTN_PER_FORWARD * (cli_steps + cli_sampled)}),
+         scratch_launches(cli_steps + cli_sampled, cli_steps)),
         *latent_runs,
     ):
         print(f"launch counts over the {path} path ({n} on the card): "

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, beyond the main path's shapes: every
 pack width and lane layout, misaligned and partial-tile inputs, each launch
 plan, the wrappers' refusals, the GroupNorm+SiLU backward (K2) and its
-bitwise-repeatable dx, dγ and dβ, a small UNet on the card against the
+bitwise-repeatable dx, dγ and dβ, the conv bias-shift pair (in place, at the
+cells' shapes, bitwise-repeatable gradients, in a CUDA graph, a launch a conv
+of the published UNets), a small UNet on the card against the
 CPU's plain path (forward, one train step, two steps of ``train_loop``, a
 DPM-Solver++ chain), ``device_prefetch``'s side-stream copies, each
 scheduler of the zoo with a stand-in denoiser on the card against the CPU,
@@ -123,7 +125,7 @@ def test_groupnorm_silu_kernel_refuses_a_plan_that_does_not_fit(dev):
     def call(**change):
         p = plan._replace(**change)
         return gn._forward_kernel()(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), None, None, 2, 64, 128,
-                                    32, p.slab_groups, p.vec, p.threads, p.smem_bytes, 1, 1e-5, 1, stream)
+                                    32, p.slab_groups, p.vec, p.threads, p.smem_bytes, 1, 1e-5, 1, x.get_device(), stream)
 
     assert call() == 0
     for change in (dict(smem_bytes=plan.smem_bytes - 16), dict(slab_groups=3), dict(vec=16),
@@ -161,7 +163,14 @@ def test_launch_counters_count_kernel_launches_only(dev):
     _, mean, rstd = ops.groupnorm_silu_forward(x, w, b, 32)
     ops.groupnorm_silu_backward(x, w, b, mean, rstd, x, 32)
     ops.groupnorm_silu_backward_plain(x, w, b, mean, rstd, x, 32)
-    assert ops.launch_counts() == {"groupnorm_silu": 2, "groupnorm_silu_backward": 1, "attention": 1}
+    y = x.permute(0, 3, 1, 2)
+    ops.bias_shift(y, b)
+    ops.bias_shift_plain(y, b)
+    ops.bias_shift(y.cpu(), b.cpu())
+    ops.bias_shift_backward(y)
+    ops.bias_shift_backward_plain(y)
+    assert ops.launch_counts() == {"groupnorm_silu": 2, "groupnorm_silu_backward": 1, "attention": 1,
+                                   "bias_shift": 1, "bias_shift_backward": 1}
 
 
 def _k2_check(x, w, b, groups, dtype, cotangent_seed=1):
@@ -242,7 +251,8 @@ def test_groupnorm_silu_backward_kernel_refuses_a_plan_that_does_not_fit(dev):
         p = plan._replace(**change)
         return gn._backward_kernel()(x.data_ptr(), w.data_ptr(), b.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                                      ct.data_ptr(), dx.data_ptr(), buf.data_ptr() + 2 * 128 * 4, buf.data_ptr(),
-                                     2, 64, 128, 32, p.slab_groups, p.vec, p.threads, p.smem_bytes, stage, 1, stream)
+                                     2, 64, 128, 32, p.slab_groups, p.vec, p.threads, p.smem_bytes, stage, 1,
+                                     x.get_device(), stream)
 
     assert call() == 0
     for change in (dict(smem_bytes=plan.smem_bytes - 16), dict(slab_groups=3), dict(vec=16),
@@ -361,7 +371,7 @@ def test_attention_kernel_refuses_a_plan_that_does_not_fit(dev):
         out = torch.empty_like(q)
         rc = attn._kernel()(q.data_ptr() + ptr_offset, q.data_ptr(), q.data_ptr(), out.data_ptr(), b * h, t, d,
                             d**-0.5, dtype_code, attn.VARIANTS.index(p.variant), p.threads, p.rows, p.key_tile,
-                            p.depth, p.smem_bytes, stream)
+                            p.depth, p.smem_bytes, q.get_device(), stream)
         return rc, out
 
     for shape, dtype in (((2, 3, 100, 64), torch.bfloat16), ((2, 64, 4, 8), torch.bfloat16),
@@ -422,12 +432,177 @@ def test_attention_gradient_through_the_tiled_forward(dev, shape):
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1e-2)
 
 
+# (B, C, H, W, dtype, with a row): the cells' shapes (celebahq-256's 256² level
+# at B=16 with and without its time embedding, its 8² level, conv_out's C = 3;
+# cifar10-32's measure at B=256 in f32), then odd widths and a ragged grid
+SHIFT_CASES = [(16, 128, 256, 256, torch.bfloat16, True), (16, 128, 256, 256, torch.bfloat16, False),
+               (16, 512, 8, 8, torch.bfloat16, True), (16, 3, 256, 256, torch.bfloat16, False),
+               (256, 128, 32, 32, torch.float32, True), (256, 3, 32, 32, torch.float32, False),
+               (3, 37, 5, 7, torch.float32, True), (3, 37, 5, 7, torch.bfloat16, True),
+               (2, 1024, 3, 3, torch.float32, False), (1, 96, 1, 1, torch.bfloat16, True)]
+
+
+def _shift_args(b, c, h, w, dtype, with_row, dev, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    y = torch.randn(b, c, h, w, generator=g, device=dev).to(dtype).contiguous(memory_format=torch.channels_last)
+    bias = 0.02 * torch.randn(c, generator=g, device=dev)
+    row = torch.randn(b, c, generator=g, device=dev).to(dtype) if with_row else None
+    return y, bias, row
+
+
+@pytest.mark.parametrize("b,c,h,w,dtype,with_row", SHIFT_CASES)
+def test_bias_shift_kernels_match_plain(dev, b, c, h, w, dtype, with_row):
+    """The forward kernel against its plain twin: the same f32 sum and one
+    rounding, so the same bits, in place (the tensor it was given, at the
+    same address). The backward against its twin (f32 sums in another order:
+    atol 1e-4 of the largest reference value, the row's gradient also one
+    bf16 rounding), and bitwise over two calls."""
+    y, bias, row = _shift_args(b, c, h, w, dtype, with_row, dev)
+    want = ops.bias_shift_plain(y.clone(), bias, row)
+    ptr = y.data_ptr()
+    got = ops.bias_shift(y, bias, row)
+    assert got is y and got.data_ptr() == ptr and torch.equal(got, want)
+    g = torch.randn(y.shape, generator=torch.Generator(dev).manual_seed(1), device=dev).to(dtype)
+    g = g.contiguous(memory_format=torch.channels_last)
+    row_dtype = dtype if with_row else None
+    first = ops.bias_shift_backward(g, row_dtype)
+    ref = ops.bias_shift_backward_plain(g, row_dtype)
+    torch.testing.assert_close(first[0], ref[0], atol=1e-4 * ref[0].abs().max().item(), rtol=0.0)
+    if with_row:
+        tol = dict(atol=1e-4 * ref[1].abs().max().item(), rtol=0.0 if dtype == torch.float32 else 2 ** -7)
+        torch.testing.assert_close(first[1].float(), ref[1].float(), **tol)
+    else:
+        assert first[1] is None
+    again = ops.bias_shift_backward(g, row_dtype)
+    assert torch.equal(first[0], again[0]) and (not with_row or torch.equal(first[1], again[1]))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_bias_shift_kernel_takes_misaligned_storage(dev, dtype):
+    """y and g a few bytes off 16-byte alignment: narrower packs."""
+    b, c, h, w = 2, 64, 4, 5
+    y0, bias, row = _shift_args(b, c, h, w, dtype, True, dev)
+    store = torch.zeros(y0.numel() + 1, dtype=dtype, device=dev)
+    y = store[1:].view(b, h, w, c).permute(0, 3, 1, 2)
+    y.copy_(y0)
+    assert y.is_contiguous(memory_format=torch.channels_last) and y.data_ptr() % 16
+    assert torch.equal(ops.bias_shift(y, bias, row), ops.bias_shift_plain(y0, bias, row))
+    ref = ops.bias_shift_backward_plain(y, dtype)
+    got = ops.bias_shift_backward(y, dtype)
+    torch.testing.assert_close(got[0], ref[0], atol=1e-4 * ref[0].abs().max().item(), rtol=0.0)
+
+
+def test_bias_shift_kernels_refuse_what_they_do_not_take(dev):
+    y, bias, row = _shift_args(2, 8, 3, 3, torch.float32, True, dev)
+    with pytest.raises(ValueError, match="channels_last"):
+        ops.bias_shift(y.contiguous(), bias, row)
+    with pytest.raises(ValueError, match="channels_last"):
+        ops.bias_shift_backward(y.contiguous())
+    with pytest.raises(ValueError, match="bias must be"):
+        ops.bias_shift(y, bias.cpu(), row)
+    with pytest.raises(ValueError, match="row must be a \\[2, 8\\] torch.float32 tensor, contiguous"):
+        ops.bias_shift(y, bias, row.t().contiguous().t())
+    with pytest.raises(ValueError, match="not differentiable"):
+        ops.bias_shift(y, bias.requires_grad_(), row)
+    with pytest.raises(ValueError, match="at most 1024 packs"):
+        ops.bias_shift(torch.zeros(1, 1031, 1, 1, device=dev), torch.zeros(1031, device=dev))
+
+
+def test_bias_shift_captures_and_replays_in_a_cuda_graph(dev):
+    """Forward and backward captured in one graph on a side stream, replayed
+    on new inputs copied into the captured buffers: the same bits as eager
+    calls on those inputs."""
+    y, bias, row = _shift_args(4, 128, 16, 16, torch.bfloat16, True, dev)
+    g = torch.randn(y.shape, device=dev).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    src = y.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ops.bias_shift(y.copy_(src), bias, row)
+        ops.bias_shift_backward(g, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.bias_shift(y.copy_(src), bias, row)
+        dbias, drow = ops.bias_shift_backward(g, torch.bfloat16)
+    for seed in (3, 4):
+        gen = torch.Generator(dev).manual_seed(seed)
+        src.copy_(torch.randn(src.shape, generator=gen, device=dev).to(torch.bfloat16))
+        bias.copy_(torch.randn(bias.shape, generator=gen, device=dev))
+        row.copy_(torch.randn(row.shape, generator=gen, device=dev).to(torch.bfloat16))
+        g.copy_(torch.randn(g.shape, generator=gen, device=dev).to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ops.bias_shift(src.clone(), bias, row))
+        want = ops.bias_shift_backward(g, torch.bfloat16)
+        assert torch.equal(dbias, want[0]) and torch.equal(drow, want[1])
+
+
+@pytest.mark.parametrize("with_row", [False, True], ids=["bias", "bias+row"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_conv2d_bias_shift_matches_autograd_on_the_card(dev, dtype, with_row):
+    """The autograd Function (the bias-free conv, the forward kernel; the
+    conv's backward and the reduce kernels) against autograd through the
+    same conv and the unfused adds: the forward the same bits as the conv
+    then the plain twin; the input's and the weight's gradients cuDNN's
+    (TOL, the weight's summed in f32: atol 1e-4·max|ref|), the bias's and
+    the row's the f32 sums (atol 1e-4·max|ref|, the row's also one bf16
+    rounding); one launch of each kernel."""
+    g = torch.Generator(dev).manual_seed(7)
+    x = torch.randn(4, 16, 16, 64, generator=g, device=dev).to(dtype)
+    weight = 0.05 * torch.randn(128, 64, 3, 3, generator=g, device=dev)
+    bias = 0.02 * torch.randn(128, generator=g, device=dev)
+    row = torch.randn(4, 128, generator=g, device=dev).to(dtype) if with_row else None
+    ct = torch.randn(4, 16, 16, 128, generator=g, device=dev).to(dtype)
+    conv = ((1, 1), (1, 1), (1, 1), 1)
+    leaves = [t.clone().requires_grad_() for t in (x, weight, bias) + ((row,) if with_row else ())]
+    ops.reset_launch_counts()
+    out = ops.conv2d_bias_shift(*leaves[:3], leaves[3] if with_row else None, *conv)
+    out.backward(ct)
+    assert ops.launch_counts()["bias_shift"] == 1 and ops.launch_counts()["bias_shift_backward"] == 1
+    bare = torch.convolution(x.permute(0, 3, 1, 2), weight.to(dtype), None, *conv[:3], False, (0, 0), 1)
+    assert torch.equal(out.detach(), ops.bias_shift_plain(bare, bias, row).permute(0, 2, 3, 1))
+    refs = [t.clone().requires_grad_() for t in (x, weight, bias) + ((row,) if with_row else ())]
+    y = torch.nn.functional.conv2d(refs[0].permute(0, 3, 1, 2), refs[1].to(dtype), None, *conv).float()
+    y = y + refs[2][None, :, None, None]
+    if with_row:
+        y = y + refs[3].float()[:, :, None, None]
+    y.permute(0, 2, 3, 1).backward(ct.float())
+    torch.testing.assert_close(leaves[0].grad.float(), refs[0].grad.float(), **TOL[dtype])
+    for got, ref in zip(leaves[1:], refs[1:]):
+        tol = dict(atol=1e-4 * ref.grad.abs().max().item(), rtol=0.0 if got.dtype == torch.float32 else 2 ** -7)
+        torch.testing.assert_close(got.grad.float(), ref.grad.float(), **tol)
+
+
+@pytest.mark.parametrize("name,convs", [("DDPM_CIFAR10_32", 65), ("DDPM_EMA_CELEBAHQ_256", 96)])
+def test_published_unet_forward_shifts_every_conv_on_the_card(dev, name, convs):
+    """A bf16 forward of google/ddpm-cifar10-32 (65 convs) and
+    google/ddpm-ema-celebahq-256 (96) at B=1: one bias_shift launch a conv,
+    and a backward one bias_shift_backward launch a conv."""
+    from baddiffusion_tpu_torch import model_configs
+
+    cfg = getattr(model_configs, name)
+    model = UNet2DModel(cfg, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(1, cfg.sample_size, cfg.sample_size, cfg.in_channels, device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        model(x, torch.tensor([10], device=dev))
+    assert ops.launch_counts()["bias_shift"] == convs
+    ops.reset_launch_counts()
+    model(x, torch.tensor([10], device=dev)).sum().backward()
+    counts = ops.launch_counts()
+    assert counts["bias_shift"] == convs and counts["bias_shift_backward"] == convs
+
+
 SMALL = UNet2DConfig(
     sample_size=16, layers_per_block=1, block_out_channels=(32, 64), norm_num_groups=8, attention_head_dim=8,
     down_block_types=("DownBlock2D", "AttnDownBlock2D"), up_block_types=("AttnUpBlock2D", "UpBlock2D"),
 )
 # 2 fused norms per resnet: 2 down, 2 mid, 4 up; plus conv_norm_out
 SMALL_GN, SMALL_ATTN = 2 * (2 + 2 + 4) + 1, 4
+# 2 convs per resnet, 5 shortcuts (the second down block's 32 -> 64 and each up resnet's concat), a down- and
+# an upsampler, conv_in and conv_out: each a bias_shift launch
+SMALL_CONV = 2 * 8 + 5 + 2 + 2
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -443,7 +618,8 @@ def test_small_unet_on_the_card_matches_the_cpu(dev, dtype):
     with torch.no_grad():
         got = card(x.to(dev), t.to(dev)).cpu()
         want = cpu(x, t)
-    assert ops.launch_counts() == {"groupnorm_silu": SMALL_GN, "groupnorm_silu_backward": 0, "attention": SMALL_ATTN}
+    assert ops.launch_counts() == {"groupnorm_silu": SMALL_GN, "groupnorm_silu_backward": 0, "attention": SMALL_ATTN,
+                                   "bias_shift": SMALL_CONV, "bias_shift_backward": 0}
     tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=0.1, rtol=0.05)
     torch.testing.assert_close(got, want, **tol)
 
@@ -479,8 +655,10 @@ def test_small_unet_train_step_on_the_card_matches_the_cpu(dev):
         state, m = step(state, image, is_clean, None, timesteps=t, noise=noise)
         results[device] = (grads, float(m["loss"]), float(m["grad_norm"]), ops.launch_counts())
     (g_cpu, l_cpu, n_cpu, c_cpu), (g_card, l_card, n_card, c_card) = results["cpu"], results["cuda"]
-    assert c_cpu == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0}
-    assert c_card == {"groupnorm_silu": SMALL_GN, "groupnorm_silu_backward": SMALL_GN, "attention": SMALL_ATTN}
+    assert c_cpu == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0, "bias_shift": 0,
+                     "bias_shift_backward": 0}
+    assert c_card == {"groupnorm_silu": SMALL_GN, "groupnorm_silu_backward": SMALL_GN, "attention": SMALL_ATTN,
+                      "bias_shift": SMALL_CONV, "bias_shift_backward": SMALL_CONV}
     assert l_card == pytest.approx(l_cpu, rel=1e-4) and n_card == pytest.approx(n_cpu, rel=1e-4)
     gmax = max(v.abs().max().item() for v in g_cpu.values())
     for k, want in g_cpu.items():
@@ -578,10 +756,12 @@ def test_train_loop_on_the_card_matches_the_cpu(dev, tmp_path):
         assert a == pytest.approx(b, rel=1e-4)
     diff = torch.cat([(p_card[k] - p_cpu[k]).abs().flatten() for k in p_cpu])
     assert diff.max().item() <= 4e-3 + 1e-6 and (diff > 1e-5).double().mean().item() <= 1e-3
-    assert c_cpu == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0}
+    assert c_cpu == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0, "bias_shift": 0,
+                     "bias_shift_backward": 0}
     forwards = 2 + 2 * 2
     assert c_card == {"groupnorm_silu": SMALL_GN * forwards, "groupnorm_silu_backward": SMALL_GN * 2,
-                      "attention": SMALL_ATTN * forwards}
+                      "attention": SMALL_ATTN * forwards, "bias_shift": SMALL_CONV * forwards,
+                      "bias_shift_backward": SMALL_CONV * 2}
 
 
 ZOO = [v for k, v in sorted(vars(factory.DiffuserModelSched).items()) if k.endswith("_SCHED") and k != "LDM_SCHED"]
@@ -640,7 +820,8 @@ def test_small_unet_dpm_solver_chain_on_the_card_matches_the_cpu(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert ops.launch_counts() == {"groupnorm_silu": SMALL_GN * 10, "groupnorm_silu_backward": 0,
-                                   "attention": SMALL_ATTN * 10}
+                                   "attention": SMALL_ATTN * 10, "bias_shift": SMALL_CONV * 10,
+                                   "bias_shift_backward": 0}
     got = out.sample.cpu()
     torch.testing.assert_close(got, want, atol=1e-3 * want.abs().max().item(), rtol=1e-3)
 
@@ -689,7 +870,8 @@ def test_segment_graphs_replay_the_eager_chain_bitwise(dev, case):
         if forwards is not None:
             total = forwards + (1 if seed == 1 else 0)  # the first call captures, after one warm-up forward
             assert counts == {"groupnorm_silu": SMALL_GN * total, "groupnorm_silu_backward": 0,
-                              "attention": SMALL_ATTN * total}, (case, seed, counts)
+                              "attention": SMALL_ATTN * total, "bias_shift": SMALL_CONV * total,
+                              "bias_shift_backward": 0}, (case, seed, counts)
     assert len(pipe._graphs) == 1
 
 

@@ -91,7 +91,7 @@ def test_zoo_names_and_designed_forwards_match_a_cpu_chain():
 
 
 def test_phase9_kernel_calls_follow_the_published_configs():
-    """Phase 9's designed (K1, K3) launches a module call are what the
+    """Phase 9's designed (K1, K3, bias_shift) launches a module call are what the
     full-width CompVis/ldm-celebahq-256 and google/ncsnpp-celebahq-256
     modules hold (built on the meta device: no memory, no weights)."""
     import torch
@@ -109,8 +109,9 @@ def test_phase9_kernel_calls_follow_the_published_configs():
         return model
 
     unet, vq = built(UNet2DModel, mc.LDM_CELEBA_HQ_256_UNET), built(VQModel, mc.LDM_CELEBA_HQ_256_VQ)
-    assert {"UNet2DModel": smoke.kernel_calls(unet), "Encoder": smoke.kernel_calls(vq.encoder),
-            "Decoder": smoke.kernel_calls(vq.decoder)} == smoke.LDM_KERNEL_CALLS
+    assert {"UNet2DModel": smoke.kernel_calls(unet), "Encoder": smoke.kernel_calls(vq.encoder, vq.quant_conv),
+            "Decoder": smoke.kernel_calls(vq.decoder, vq.post_quant_conv)} == smoke.LDM_KERNEL_CALLS
     assert smoke.kernel_calls(built(UNet2DModel, mc.NCSNPP_CELEBA_HQ_256)) == smoke.NCSNPP_KERNEL_CALLS
-    want = smoke.want_launches({"UNet2DModel": 2, "Decoder": 1}, smoke.LDM_KERNEL_CALLS, steps=3, step_k1=5, step_k3=1)
-    assert want == {"groupnorm_silu": 2 * 45 + 23 + 15, "groupnorm_silu_backward": 15, "attention": 2 * 16 + 1 + 3}
+    want = smoke.want_launches({"UNet2DModel": 2, "Decoder": 1}, smoke.LDM_KERNEL_CALLS, steps=3, step=(5, 1, 7))
+    assert want == {"groupnorm_silu": 2 * 45 + 23 + 15, "groupnorm_silu_backward": 15, "attention": 2 * 16 + 1 + 3,
+                    "bias_shift": 2 * 67 + 29 + 21, "bias_shift_backward": 21}

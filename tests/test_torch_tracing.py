@@ -287,3 +287,17 @@ def test_model_init_reader():
     UNet2DModel(TINY, device="cpu")
     calls, seconds = profiling.counters()["unet.init"]
     assert calls == 2 and read(ctx) == pytest.approx(seconds / 2) and read(_ctx(TRAIN, "train", 2)) > 0
+
+
+@pytest.mark.parametrize("metric, mode", [("bias_shift_device_ms.sample", "sample"),
+                                          ("bias_shift_device_ms.train", "train")])
+def test_bias_shift_readers(metric, mode):
+    """The bias-shift kernels' device ms a step, by kernel name; None in a
+    program without them (a parent without the pair) and in the other mode."""
+    base = TRAIN if mode == "train" else SAMPLE
+    events = base + [_launch(900, 1, 20), _kernel("void bias_shift_fwd_kernel<__nv_bfloat16, 8, true>", 900, 40, 20),
+                     _launch(950, 1, 21), _kernel("void bias_shift_fold_kernel<float>", 950, 4, 21)]
+    read = harness.reader(ROOT, metric).read
+    assert read(_ctx(events, mode, 2)) == pytest.approx(44e-3 / 2)
+    assert read(_ctx(base, mode, 2)) is None
+    assert read(_ctx(events, "train" if mode == "sample" else "sample", 2)) is None
