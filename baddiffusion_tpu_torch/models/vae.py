@@ -2,7 +2,8 @@
 ``baddiffusion_tpu/models/vae.py``).
 
 ``VQModel``: encoder → quant_conv → ``VectorQuantizer`` (nearest codebook
-row by the expanded L2, straight-through) → post_quant_conv → decoder.
+row, straight-through) → post_quant_conv → decoder; ``encode`` is the span
+``vq.encode``, ``decode`` the span ``vq.decode`` holding ``vq.quantize``.
 ``AutoencoderKL``: the same encoder and decoder around a diagonal gaussian
 posterior. The encoder and decoder are temb-free blocks with GroupNorm eps
 1e-6, a downsample without padding, and a one-head mid-block attention
@@ -31,6 +32,8 @@ from baddiffusion_tpu_torch.device import DeviceLike, resolve_device
 from baddiffusion_tpu_torch.models.blocks import DownEncoderBlock2D, UNetMidBlock2D, UpDecoderBlock2D
 from baddiffusion_tpu_torch.models.resnet import Conv2d, GroupNorm
 from baddiffusion_tpu_torch.models.unet2d import MODEL_CONFIG_NAME, init_weights_
+from baddiffusion_tpu_torch.ops import vq_nearest
+from baddiffusion_tpu_torch.utils.profiling import span
 
 VAE_EPS = 1e-6
 
@@ -94,8 +97,10 @@ class Decoder(nn.Module):
 
 
 class VectorQuantizer(nn.Module):
-    """Nearest codebook row of each ``vq_embed_dim`` vector of z, by
-    ‖z‖² + ‖e‖² − 2 z·e in f32; the codebook rows come back through the
+    """Nearest codebook row of each ``vq_embed_dim`` vector of z, in f32
+    (``ops.vq_nearest``: a kernel on the card that holds no ``[N, K]``
+    distance matrix; on the CPU its plain twin, the expanded L2
+    ‖z‖² + ‖e‖² − 2 z·e); the codebook rows come back through the
     straight-through form z + (z_q − z), detached, as the JAX module computes
     them. Returns (z_q in z's dtype, indices ``z.shape[:-1]``)."""
 
@@ -105,12 +110,9 @@ class VectorQuantizer(nn.Module):
         self.embedding = nn.Embedding(n_e, vq_embed_dim)
 
     def forward(self, z: torch.Tensor):
-        codebook = self.embedding.weight.float()
         zf = z.float()
-        flat = zf.reshape(-1, self.vq_embed_dim)
-        d = flat.square().sum(dim=1, keepdim=True) + codebook.square().sum(dim=1)[None, :] - 2.0 * flat @ codebook.T
-        idx = torch.argmin(d, dim=1)
-        z_q = codebook[idx].reshape(zf.shape)
+        idx, z_q = vq_nearest(zf.reshape(-1, self.vq_embed_dim).contiguous(), self.embedding.weight.float())
+        z_q = z_q.reshape(zf.shape)
         return (zf + (z_q - zf).detach()).to(z.dtype), idx.reshape(z.shape[:-1])
 
 
@@ -202,13 +204,16 @@ class VQModel(_Autoencoder):
         self.post_quant_conv = Conv2d(vq_dim, cfg.latent_channels, 1)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return self.quant_conv(self.encoder(x.to(self.dtype)))
+        with span("vq.encode"):
+            return self.quant_conv(self.encoder(x.to(self.dtype)))
 
     def decode(self, h: torch.Tensor, force_not_quantize: bool = False) -> torch.Tensor:
-        h = h.to(self.dtype)
-        if not force_not_quantize:
-            h, _ = self.quantize(h)
-        return self.decoder(self.post_quant_conv(h))
+        with span("vq.decode"):
+            h = h.to(self.dtype)
+            if not force_not_quantize:
+                with span("vq.quantize"):
+                    h, _ = self.quantize(h)
+            return self.decoder(self.post_quant_conv(h))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(x))

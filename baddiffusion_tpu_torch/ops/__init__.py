@@ -20,8 +20,9 @@ from baddiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_silu_plan,
     groupnorm_stats_plain,
 )
+from baddiffusion_tpu_torch.ops.vq import vq_nearest, vq_nearest_plain, vq_nearest_plan
 
-KERNELS = (groupnorm_silu, groupnorm_silu_backward, attention, bias_shift, bias_shift_backward)
+KERNELS = (groupnorm_silu, groupnorm_silu_backward, attention, bias_shift, bias_shift_backward, vq_nearest)
 
 
 def reset_launch_counts() -> None:
@@ -64,4 +65,7 @@ __all__ = [
     "groupnorm_stats_plain",
     "launch_counts",
     "reset_launch_counts",
+    "vq_nearest",
+    "vq_nearest_plain",
+    "vq_nearest_plan",
 ]

@@ -24,7 +24,7 @@ import torch
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
-SOURCES = ("groupnorm_silu", "groupnorm_silu_bwd", "attention", "bias_shift")
+SOURCES = ("groupnorm_silu", "groupnorm_silu_bwd", "attention", "bias_shift", "vq_nearest")
 # the kernels' dtype codes (csrc/common.cuh, ``bd::DType``)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

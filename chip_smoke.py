@@ -38,8 +38,12 @@
    in bf16, google/ddpm-cifar10-32's measure at B=256 in f32): the forward
    bitwise its twin and in place, the gradients against the twin and
    bitwise over two calls, timed beside the aten passes it replaced and its
-   byte bound. Where two calls differ, the differing
-   elements and a third call are printed before the failure.
+   byte bound. Then the VQ nearest-code search at the LDM measure's decode
+   (1,048,576 vectors of 3 against 8192 codes): its codes the twin's (in
+   row blocks) but for near ties, z_q codebook[idx] bitwise, bitwise over
+   two calls, at most 1 GiB beyond its outputs, timed beside the twin,
+   torch.cdist + argmin and its operation bound. Where two calls differ, the
+   differing elements and a third call are printed before the failure.
 3. The sampling path: the full-width scratch UNet (113.7M parameters, 32 px)
    with seeded weights, saved and reloaded through the pipeline's HF layout,
    one f32 forward and a 10-step f32 chain checked against the CPU's plain
@@ -798,6 +802,64 @@ def phase_bias_shift(dev, gen) -> dict:
           f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, aten {tot['library_ms']:.4f} ms, bound {b_ms:.5f} ms")
     return dict(rec.entry, max_abs_err=rec.err, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                 library_ms=tot["library_ms"])
+
+
+VQ_SHAPE = (256 * 64 * 64, 8192, 3)  # the LDM measure's decode: 256 latents of 64x64 vectors of 3, 8192 codes
+VQ_ROWS = 1 << 16  # vectors a block of the twin's [rows, K] distances (2 GiB in f32)
+VQ_TIE = 2.0 ** -18  # a near tie, as the benchmark's: within f32 rounding of ‖z‖² + ‖e‖²
+VQ_OPS_PER_S = 495e12  # the benchmark's f32 rate (TF32), at which its yardstick counts 2·D·K a vector
+
+
+def vq_blocks(fn, z, codebook):
+    """``fn`` over ``VQ_ROWS`` vectors of ``z`` at a time, the results joined."""
+    return torch.cat([fn(z[r:r + VQ_ROWS], codebook) for r in range(0, z.shape[0], VQ_ROWS)])
+
+
+def phase_vq_nearest(dev, gen) -> dict:
+    print("-- the VQ nearest-code search (vq_nearest_kernel) vs its plain twin (the expanded-L2 argmin, in row "
+          "blocks of 65536 vectors) at the LDM measure's decode: 1,048,576 vectors of 3 against 8192 codes; a code "
+          "may differ from the twin's only in a near tie (the twin's distances within 2**-18 of ‖z‖² + ‖e‖²), z_q "
+          "is codebook[idx] bitwise, both bitwise over two calls, the peak under 1 GiB beyond the outputs; "
+          "library: torch.cdist + argmin in the same row blocks; bound: 2·D·K operations a vector at 495 TFLOP/s")
+    n, k, d = VQ_SHAPE
+    z = torch.randn(n, d, generator=gen, device=dev)
+    codebook = torch.randn(k, d, generator=gen, device=dev)
+    print(f"   plan: {ops.vq_nearest_plan(n, k, d)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    idx, zq = ops.vq_nearest(z, codebook)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - idx.numel() * idx.element_size() - zq.numel() * 4
+    check(extra < 1 << 30, f"vq_nearest: {extra} bytes allocated beyond its outputs")
+    check(torch.equal(zq, codebook[idx]), "vq_nearest: z_q is not codebook[idx] bit for bit")
+    norms = codebook.square().sum(dim=1)
+    differ = ties = 0
+    err = 0.0
+    for r in range(0, n, VQ_ROWS):
+        zb, got = z[r:r + VQ_ROWS], idx[r:r + VQ_ROWS]
+        want = ops.vq_nearest_plain(zb, codebook)[0]
+        dist = zb.square().sum(dim=1, keepdim=True) + norms[None, :] - 2.0 * zb @ codebook.T
+        over = dist.gather(1, got[:, None])[:, 0] - dist.gather(1, want[:, None])[:, 0]
+        near = over.abs() <= VQ_TIE * (zb.square().sum(dim=1) + norms[got])
+        off = got != want
+        differ += int((off & ~near).sum())
+        ties += int((off & near).sum())
+        err = max(err, over.abs().max().item())
+        del dist
+    print(f"   codes: {ties} near ties of {n} differ from the twin's, {differ} beyond; largest distance gap {err:.3g}")
+    check(differ == 0, f"vq_nearest: {differ} of {n} codes differ from the twin's beyond a near tie")
+    check_repeatable("vq_nearest", (idx, zq), lambda: ops.vq_nearest(z, codebook))
+    _, k_ms, _, _ = device_profile(lambda: ops.vq_nearest(z, codebook), 20)
+    p_ms = device_ms(lambda: vq_blocks(lambda a, b: ops.vq_nearest_plain(a, b)[0], z, codebook), reps=3)
+    l_ms = device_ms(lambda: vq_blocks(lambda a, b: torch.cdist(a, b).argmin(dim=1), z, codebook), reps=3)
+    b_ms = 2 * d * k * n / VQ_OPS_PER_S * 1e3
+    print(f"   kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  cdist+argmin {l_ms:.4f} ms  bound {b_ms:.5f} ms "
+          f"(operations; kernel/bound {k_ms / b_ms:.2f}, {100 * b_ms / k_ms:.2f}% of it)")
+    del z, codebook, idx, zq
+    return dict(name="vq_nearest", route="cuda", source="baddiffusion_tpu_torch/csrc/vq_nearest.cu",
+                replaces="none (XLA builds the whole [N, K] expanded-L2 matrix, then its argmin)",
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by="operations", library_ms=l_ms)
 
 
 def attn_rate(plan, dtype):
@@ -1765,7 +1827,7 @@ def scratch_launches(forwards: int, backwards: int = 0) -> dict:
     bias_shift_backward)."""
     return {"groupnorm_silu": GN_PER_FORWARD * forwards, "groupnorm_silu_backward": GN_PER_FORWARD * backwards,
             "attention": ATTN_PER_FORWARD * forwards, "bias_shift": CONV_PER_FORWARD * forwards,
-            "bias_shift_backward": CONV_PER_FORWARD * backwards}
+            "bias_shift_backward": CONV_PER_FORWARD * backwards, "vq_nearest": 0}
 
 
 class CallCounter:
@@ -1791,10 +1853,11 @@ class CallCounter:
 def want_launches(calls: dict, per: dict, steps: int = 0, step: tuple = (0, 0, 0)) -> dict:
     """The launch counts a run should show: ``per[name] = (K1, K3, convs)``
     for each counted module call, and ``steps`` train steps of ``step`` =
-    (K1, K3, convs) (each K1 with its K2, each conv with its backward)."""
+    (K1, K3, convs) (each K1 with its K2, each conv with its backward); one
+    nearest-code search a VQ decode (a ``Decoder`` call)."""
     k1, k3, convs = (sum(n * per[name][i] for name, n in calls.items()) + steps * step[i] for i in range(3))
     return {"groupnorm_silu": k1, "groupnorm_silu_backward": steps * step[0], "attention": k3, "bias_shift": convs,
-            "bias_shift_backward": steps * step[2]}
+            "bias_shift_backward": steps * step[2], "vq_nearest": calls.get("Decoder", 0)}
 
 
 def check_card_vs_cpu(label: str, got: torch.Tensor, want: torch.Tensor) -> None:
@@ -2052,7 +2115,7 @@ class ForwardCounter:
         k1, k3, convs = per
         n = self.grad + self.nograd
         return {"groupnorm_silu": k1 * n, "groupnorm_silu_backward": k1 * self.grad, "attention": k3 * n,
-                "bias_shift": convs * n, "bias_shift_backward": convs * self.grad}
+                "bias_shift": convs * n, "bias_shift_backward": convs * self.grad, "vq_nearest": 0}
 
 
 def counted(runs: list, path: str, per: tuple, fn):
@@ -2832,7 +2895,7 @@ def main() -> int:
     smi = phase_environment()
     gen = torch.Generator(dev).manual_seed(0)
     kernels = [phase_groupnorm(dev, gen), phase_groupnorm_backward(dev, gen), phase_attention(dev, gen),
-               phase_bias_shift(dev, gen)]
+               phase_bias_shift(dev, gen), phase_vq_nearest(dev, gen)]
     forwards, sampling = phase_slice(dev, smi)
     zoo_fwd, zoo = phase_zoo(dev, smi)
     steps, training, bare_ms = phase_train(dev, smi)

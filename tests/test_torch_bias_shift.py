@@ -209,7 +209,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take_and_count_nothing_on_the_c
     x, weight, bias, row, ct = _conv_inputs(8, torch.bfloat16, seed=3)
     conv2d_bias_shift(x.requires_grad_(), weight.requires_grad_(), bias, row.requires_grad_(), *CONV).backward(ct)
     assert ops.launch_counts() == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0,
-                                   "bias_shift": 0, "bias_shift_backward": 0}
+                                   "bias_shift": 0, "bias_shift_backward": 0, "vq_nearest": 0}
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

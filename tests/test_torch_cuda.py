@@ -3,7 +3,9 @@ pack width and lane layout, misaligned and partial-tile inputs, each launch
 plan, the wrappers' refusals, the GroupNorm+SiLU backward (K2) and its
 bitwise-repeatable dx, dγ and dβ, the conv bias-shift pair (in place, at the
 cells' shapes, bitwise-repeatable gradients, in a CUDA graph, a launch a conv
-of the published UNets), a small UNet on the card against the
+of the published UNets), the VQ quantizer's nearest-code kernel (ragged
+shapes, exact ties, the LDM measure's N and K without a distance matrix),
+K1 and the bias shift on a tensor of over 2**31 elements, a small UNet on the card against the
 CPU's plain path (forward, one train step, two steps of ``train_loop``, a
 DPM-Solver++ chain), ``device_prefetch``'s side-stream copies, each
 scheduler of the zoo with a stand-in denoiser on the card against the CPU,
@@ -170,7 +172,7 @@ def test_launch_counters_count_kernel_launches_only(dev):
     ops.bias_shift_backward(y)
     ops.bias_shift_backward_plain(y)
     assert ops.launch_counts() == {"groupnorm_silu": 2, "groupnorm_silu_backward": 1, "attention": 1,
-                                   "bias_shift": 1, "bias_shift_backward": 1}
+                                   "bias_shift": 1, "bias_shift_backward": 1, "vq_nearest": 0}
 
 
 def _k2_check(x, w, b, groups, dtype, cotangent_seed=1):
@@ -574,6 +576,130 @@ def test_conv2d_bias_shift_matches_autograd_on_the_card(dev, dtype, with_row):
         torch.testing.assert_close(got.grad.float(), ref.grad.float(), **tol)
 
 
+# (N, K, D): ragged N and K around the plan's blocks, tiles and chunks, every vector width the plan takes,
+# the dimensions 1 to 8, and a codebook of several tiles
+VQ_CASES = [(1, 1, 3), (1000, 8, 3), (12345, 8192, 3), (70001, 2049, 3), (5000, 33, 3), (3000, 100, 3),
+            (4097, 1031, 3), (2000, 700, 3), (999, 64, 3), (300000, 4500, 3)]
+VQ_MARGIN = 2.0 ** -18  # as the benchmark's near tie: within f32 rounding of ‖z‖² + ‖e‖²
+
+
+def _vq_args(n, k, d, dev, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    return torch.randn(n, d, generator=g, device=dev), torch.randn(k, d, generator=g, device=dev)
+
+
+def _assert_nearest(z, codebook, idx, zq, rows=1 << 16):
+    """``idx`` is each vector's nearest code by the twin's expanded L2 (the
+    twin's own code or one within f32 rounding of it), ``zq`` its row."""
+    assert idx.dtype == torch.int64 and torch.equal(zq, codebook[idx])
+    norms = codebook.square().sum(dim=1)
+    for r in range(0, z.shape[0], rows):
+        zb, got = z[r:r + rows], idx[r:r + rows]
+        want = ops.vq_nearest_plain(zb, codebook)[0]
+        d = zb.square().sum(1, keepdim=True) + norms[None, :] - 2.0 * zb @ codebook.T
+        over = d.gather(1, got[:, None])[:, 0] - d.gather(1, want[:, None])[:, 0]
+        near = over <= VQ_MARGIN * (zb.square().sum(dim=1) + norms[got])
+        assert bool(((got == want) | near).all()), int((~((got == want) | near)).sum())
+
+
+@pytest.mark.parametrize("n,k,d", VQ_CASES)
+def test_vq_nearest_kernel_matches_plain(dev, n, k, d):
+    """The kernel's code for each vector is the twin's, or within f32
+    rounding of it; its rows are the codebook's; the same bits over two
+    calls."""
+    z, codebook = _vq_args(n, k, d, dev)
+    idx, zq = ops.vq_nearest(z, codebook)
+    _assert_nearest(z, codebook, idx, zq)
+    again = ops.vq_nearest(z, codebook)
+    assert torch.equal(idx, again[0]) and torch.equal(zq, again[1])
+
+
+def test_vq_nearest_kernel_breaks_exact_ties_to_the_lowest_index(dev):
+    """Codes repeated across chunks and tiles: every vector takes the first
+    copy, as torch.argmin does; a vector on a code takes it."""
+    base = torch.randn(40, 3, generator=torch.Generator(dev).manual_seed(5), device=dev)
+    codebook = torch.cat([base, base.flip(0), base, torch.zeros(1, 3, device=dev), base])  # 161 codes
+    z = torch.cat([codebook[:40] + 1e-3 * torch.randn(40, 3, device=dev), codebook[:40], torch.zeros(1, 3, device=dev)])
+    idx, zq = ops.vq_nearest(z, codebook)
+    _assert_nearest(z, codebook, idx, zq)
+    assert torch.equal(idx[40:80], torch.arange(40, device=dev)) and int(idx[80]) == 120
+    far = lambda n: torch.randn(n, 3, device=dev) + 50.0
+    wide = torch.cat([far(2000), base, far(100), base])  # the first copies in the first tile, the second in the next
+    assert ops.vq_nearest_plan(40, wide.shape[0], 3).tile == 2048
+    assert torch.equal(ops.vq_nearest(base.contiguous(), wide)[0], torch.arange(2000, 2040, device=dev))
+
+
+def test_vq_nearest_at_the_measure_shape_holds_no_distance_matrix(dev):
+    """N = 256·64·64 vectors against 8192 codes of 3 (the LDM measure's
+    decode): the twin's codes, row blocks at a time; bitwise over two calls;
+    a peak under 1 GiB beyond the outputs, and one launch; through
+    ``VectorQuantizer`` too."""
+    from baddiffusion_tpu_torch.models.vae import VectorQuantizer
+
+    z, codebook = _vq_args(256 * 64 * 64, 8192, 3, dev, seed=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    idx, zq = ops.vq_nearest(z, codebook)
+    torch.cuda.synchronize()
+    outputs = idx.numel() * 8 + zq.numel() * 4
+    assert torch.cuda.max_memory_allocated() - base - outputs < 1 << 30
+    assert ops.launch_counts()["vq_nearest"] == 1
+    _assert_nearest(z, codebook, idx, zq)
+    again = ops.vq_nearest(z, codebook)
+    assert torch.equal(idx, again[0]) and torch.equal(zq, again[1])
+    del again
+    quantizer = VectorQuantizer(8192, 3).to(dev)
+    quantizer.embedding.weight.data.copy_(codebook)
+    latents = z.view(256, 64, 64, 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        out, codes = quantizer(latents)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base - (out.numel() * 4 + codes.numel() * 8) < 1 << 30
+    assert torch.equal(codes.reshape(-1), idx) and ops.launch_counts()["vq_nearest"] == 3
+
+
+def test_vq_nearest_refuses_what_it_does_not_take(dev):
+    z, codebook = _vq_args(10, 8, 3, dev)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        ops.vq_nearest(z.double(), codebook)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        ops.vq_nearest(z.t().contiguous().t(), codebook)
+    with pytest.raises(ValueError, match="codebook must be"):
+        ops.vq_nearest(z, codebook.cpu())
+    with pytest.raises(ValueError, match="codebook must be"):
+        ops.vq_nearest(z, codebook[:, :2].contiguous())
+    with pytest.raises(ValueError, match="vectors of 3 elements"):
+        ops.vq_nearest(*_vq_args(10, 8, 4, dev))
+
+
+def test_k1_and_the_bias_shift_take_a_tensor_of_over_2_31_elements(dev):
+    """The LDM decoder's 256 px stage at B=256: [256, 256, 256, 256] f32,
+    2**32 elements. K1 and the forward shift on the whole tensor against
+    their twins on batch rows below and above 2**31 elements."""
+    b, hw, c = 256, 256, 256
+    x = torch.empty(b, hw, hw, c, device=dev)
+    for r in range(0, b, 32):  # drawn in slices: the generator's own offsets stay small
+        x[r:r + 32].normal_(generator=torch.Generator(dev).manual_seed(r))
+    w, bias = torch.rand(c, device=dev) + 0.5, 0.1 * torch.randn(c, device=dev)
+    rows = [0, 1, 127, 128, 200, 255]
+    with torch.no_grad():
+        y = ops.groupnorm_silu(x, w, bias, 32, 1e-6)
+        for r in rows:
+            torch.testing.assert_close(y[r:r + 1], ops.groupnorm_silu_plain(x[r:r + 1], w, bias, 32, 1e-6),
+                                       atol=1e-5, rtol=0.0)
+        del y
+        shift = torch.randn(b, c, device=dev)
+        want = {r: ops.bias_shift_plain(x[r:r + 1].permute(0, 3, 1, 2).clone(), bias, shift[r:r + 1]) for r in rows}
+        got = ops.bias_shift(x.permute(0, 3, 1, 2), bias, shift)
+        for r in rows:
+            assert torch.equal(got[r:r + 1], want[r])
+
+
 @pytest.mark.parametrize("name,convs", [("DDPM_CIFAR10_32", 65), ("DDPM_EMA_CELEBAHQ_256", 96)])
 def test_published_unet_forward_shifts_every_conv_on_the_card(dev, name, convs):
     """A bf16 forward of google/ddpm-cifar10-32 (65 convs) and
@@ -619,7 +745,8 @@ def test_small_unet_on_the_card_matches_the_cpu(dev, dtype):
         got = card(x.to(dev), t.to(dev)).cpu()
         want = cpu(x, t)
     assert ops.launch_counts() == {"groupnorm_silu": SMALL_GN, "groupnorm_silu_backward": 0, "attention": SMALL_ATTN,
-                                   "bias_shift": SMALL_CONV, "bias_shift_backward": 0}
+                                   "bias_shift": SMALL_CONV, "bias_shift_backward": 0,
+                                   "vq_nearest": 0}
     tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=0.1, rtol=0.05)
     torch.testing.assert_close(got, want, **tol)
 
@@ -656,9 +783,9 @@ def test_small_unet_train_step_on_the_card_matches_the_cpu(dev):
         results[device] = (grads, float(m["loss"]), float(m["grad_norm"]), ops.launch_counts())
     (g_cpu, l_cpu, n_cpu, c_cpu), (g_card, l_card, n_card, c_card) = results["cpu"], results["cuda"]
     assert c_cpu == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0, "bias_shift": 0,
-                     "bias_shift_backward": 0}
+                     "bias_shift_backward": 0, "vq_nearest": 0}
     assert c_card == {"groupnorm_silu": SMALL_GN, "groupnorm_silu_backward": SMALL_GN, "attention": SMALL_ATTN,
-                      "bias_shift": SMALL_CONV, "bias_shift_backward": SMALL_CONV}
+                      "bias_shift": SMALL_CONV, "bias_shift_backward": SMALL_CONV, "vq_nearest": 0}
     assert l_card == pytest.approx(l_cpu, rel=1e-4) and n_card == pytest.approx(n_cpu, rel=1e-4)
     gmax = max(v.abs().max().item() for v in g_cpu.values())
     for k, want in g_cpu.items():
@@ -757,11 +884,11 @@ def test_train_loop_on_the_card_matches_the_cpu(dev, tmp_path):
     diff = torch.cat([(p_card[k] - p_cpu[k]).abs().flatten() for k in p_cpu])
     assert diff.max().item() <= 4e-3 + 1e-6 and (diff > 1e-5).double().mean().item() <= 1e-3
     assert c_cpu == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0, "bias_shift": 0,
-                     "bias_shift_backward": 0}
+                     "bias_shift_backward": 0, "vq_nearest": 0}
     forwards = 2 + 2 * 2
     assert c_card == {"groupnorm_silu": SMALL_GN * forwards, "groupnorm_silu_backward": SMALL_GN * 2,
                       "attention": SMALL_ATTN * forwards, "bias_shift": SMALL_CONV * forwards,
-                      "bias_shift_backward": SMALL_CONV * 2}
+                      "bias_shift_backward": SMALL_CONV * 2, "vq_nearest": 0}
 
 
 ZOO = [v for k, v in sorted(vars(factory.DiffuserModelSched).items()) if k.endswith("_SCHED") and k != "LDM_SCHED"]
@@ -821,7 +948,7 @@ def test_small_unet_dpm_solver_chain_on_the_card_matches_the_cpu(dev):
         torch.cuda.set_sync_debug_mode(0)
     assert ops.launch_counts() == {"groupnorm_silu": SMALL_GN * 10, "groupnorm_silu_backward": 0,
                                    "attention": SMALL_ATTN * 10, "bias_shift": SMALL_CONV * 10,
-                                   "bias_shift_backward": 0}
+                                   "bias_shift_backward": 0, "vq_nearest": 0}
     got = out.sample.cpu()
     torch.testing.assert_close(got, want, atol=1e-3 * want.abs().max().item(), rtol=1e-3)
 
@@ -871,7 +998,7 @@ def test_segment_graphs_replay_the_eager_chain_bitwise(dev, case):
             total = forwards + (1 if seed == 1 else 0)  # the first call captures, after one warm-up forward
             assert counts == {"groupnorm_silu": SMALL_GN * total, "groupnorm_silu_backward": 0,
                               "attention": SMALL_ATTN * total, "bias_shift": SMALL_CONV * total,
-                              "bias_shift_backward": 0}, (case, seed, counts)
+                              "bias_shift_backward": 0, "vq_nearest": 0}, (case, seed, counts)
     assert len(pipe._graphs) == 1
 
 

@@ -154,7 +154,7 @@ def test_groupnorm_silu_backward_wrapper_takes_the_plain_path_on_the_cpu():
     want = groupnorm_silu_backward_plain(x, scale, bias, mean, rstd, ct, 32)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert ops.launch_counts() == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0,
-                                   "bias_shift": 0, "bias_shift_backward": 0}
+                                   "bias_shift": 0, "bias_shift_backward": 0, "vq_nearest": 0}
     with pytest.raises(ValueError, match=r"mean/rstd must be \[2, 32\]"):
         groupnorm_silu_backward_plain(x, scale, bias, mean[:, :8], rstd[:, :8], ct, 32)
 

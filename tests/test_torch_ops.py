@@ -101,7 +101,7 @@ def test_cpu_wrappers_route_to_plain_and_launch_nothing():
     attention(q, q, q, 0.5).sum().backward()
     assert x.grad is not None and q.grad is not None
     assert ops.launch_counts() == {"groupnorm_silu": 0, "groupnorm_silu_backward": 0, "attention": 0,
-                                   "bias_shift": 0, "bias_shift_backward": 0}
+                                   "bias_shift": 0, "bias_shift_backward": 0, "vq_nearest": 0}
 
 
 def test_plain_versions_keep_the_input_dtype():

@@ -114,4 +114,4 @@ def test_phase9_kernel_calls_follow_the_published_configs():
     assert smoke.kernel_calls(built(UNet2DModel, mc.NCSNPP_CELEBA_HQ_256)) == smoke.NCSNPP_KERNEL_CALLS
     want = smoke.want_launches({"UNet2DModel": 2, "Decoder": 1}, smoke.LDM_KERNEL_CALLS, steps=3, step=(5, 1, 7))
     assert want == {"groupnorm_silu": 2 * 45 + 23 + 15, "groupnorm_silu_backward": 15, "attention": 2 * 16 + 1 + 3,
-                    "bias_shift": 2 * 67 + 29 + 21, "bias_shift_backward": 21}
+                    "bias_shift": 2 * 67 + 29 + 21, "bias_shift_backward": 21, "vq_nearest": 1}
