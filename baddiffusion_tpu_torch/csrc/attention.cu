@@ -12,7 +12,7 @@
 // f32; the output is stored in the input dtype. No variant splits the keys
 // or uses atomics: the output is bitwise repeatable.
 //
-// What bounds it, and the four variants of the launch plan (chosen on the
+// What bounds it, and the five variants of the launch plan (chosen on the
 // host by ops/attention.py `attention_plan`, passed in and checked here):
 //
 // - packed (T <= 16, D <= 32, f32 or bf16): the 32 px UNet's calls,
@@ -36,8 +36,34 @@
 //   tile; P is rounded to bf16 in registers and fed back as the A operand of
 //   P V. At D = 8 the T^2 exponentials bound it (about 3.9 T/s on an H100
 //   SXM5), at D = 64-256 the bytes or the products.
-// - tf32x3 (f32, the rest: T > 16 or D > 32) and wide (bf16, D > 256): the
-//   same online softmax on mma.sync fragments, with the depth split. One
+// - tf32x3_wg (f32, D <= 64, T > 16): the LDM UNet's heads of 32
+//   ([B, 14, 1024, 32], [B, 21, 256, 32], [B, 28, 64, 32]), NCSN++'s and the
+//   256 px scratch UNet's heads of 8. Three TF32 products a product (as
+//   tf32x3 below) bound it: 12 T^2 D operations a head at 495 TFLOP/s, the
+//   T^2 exponentials and the softmax's f32 arithmetic a fraction of that.
+//   mma.sync cannot reach the tensor cores' rate on Hopper, so this variant
+//   runs Hopper's warpgroup products (wgmma m64nNk8 .tf32) fed by TMA.
+//   One persistent block an SM walks its items (128 query rows of a head,
+//   or two heads where T <= 64). Warpgroup 0 feeds: one thread keeps Q and
+//   a ring of K/V tiles (64 keys) in flight with TMA (128-byte swizzle,
+//   zeros past T and D: D is zero-padded to 32 or 64), the other three
+//   warps convert each staged tile once for both consumers: K cut to its
+//   tf32 hi in place and its lo beside it, V transposed (wgmma takes tf32
+//   operands K-major only) into hi and lo, each 8 keys even first, so P
+//   feeds the A operand of P V straight from S's accumulator registers.
+//   Warpgroups 1 and 2 own 64 query rows each: S = Q K^T with Q as register
+//   fragments (depth 32) or from shared memory (64), then the online
+//   softmax in f32 on the accumulator, then P V with P from registers. A
+//   warpgroup issues tile j + 1's S with tile j's P V, and tile j's P V in
+//   three parts between the parts of tile j + 1's softmax: the issue of a
+//   product waits while the tensor cores' queue is full, so the products
+//   run on while the warpgroup computes; the other warpgroup's products
+//   fill the rest. Each key tile's S and P V start from zero and P V is
+//   added to O by the f32 cores, as in tf32x3. No split over keys, no
+//   atomics, nothing but the output in device memory. setmaxnreg moves
+//   registers from the feeding warpgroup to the consumers.
+// - tf32x3 (f32, the rest: D > 64, or T <= 16 with D > 32) and wide (bf16,
+//   D > 256): the same online softmax on mma.sync fragments, with the depth split. One
 //   warp's O for 16 rows at D = 512 is 256 f32 a lane, more than a thread's
 //   255 registers, and 64 rows of it are half an SM's register file. So a
 //   group of `parts` warps shares 16 query rows, each warp owning DW columns
@@ -61,15 +87,14 @@
 //     margin (about 2e-6 on the card), which one TF32 product (2^-11)
 //     cannot. Three products at the TF32 rate (495 TFLOP/s dense) are its
 //     bound's operations: 165 TFLOP/s of f32 work, against 67 on the f32
-//     cores. DW = 8, 16, 32 (one warp a group, 64 keys a tile), 64 or 128
-//     (up to 8 or 4 warps a group at D = 512; 16 or 32 keys a tile). At
-//     D = 8-32 the T^2 exponentials and the softmax's f32 arithmetic bound
-//     it; at D >= 256 the products, then the split's arithmetic, the
+//     cores. DW = 64 or 128 (up to 8 or 4 warps a group at D = 512; 16 or
+//     32 keys a tile). At D >= 256 the products, then the split's arithmetic, the
 //     staging and the exchange, each of which the warps of a block wait
 //     for together (one block barrier a key tile).
 //   * wide runs tiled's bf16 products (ldmatrix, m16n8k16) over DW = 128 or
 //     256 columns a warp, 32 keys a tile; at D = 512 the products bound it.
 
+#include <cuda.h>  // CUtensorMap and its encoder's types (the encoder is found through the runtime)
 #include <limits.h>
 #include <math.h>
 
@@ -77,7 +102,7 @@
 
 namespace {
 
-enum Variant : int { kPacked = 0, kTiled = 1, kTf32x3 = 2, kWide = 3 };
+enum Variant : int { kPacked = 0, kTiled = 1, kTf32x3 = 2, kWide = 3, kTf32x3Wg = 4 };
 constexpr int kMaxT = 4096;  // ops/attention.py MAX_T
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSmemLimit = 227 * 1024;  // dynamic shared memory a block may have on an H100
@@ -429,15 +454,13 @@ constexpr int kSplitMaxThreads = 512;
 __host__ __device__ __forceinline__ int pad_to(int n, int r) { return n + ((r - n) % 32 + 32) % 32; }
 // the (depth a warp owns, key tile) pairs instantiated
 inline bool split_instance_ok(bool f32, int dw, int bn) {
-  return f32 ? ((dw == 8 || dw == 16 || dw == 32) && bn == 64) || ((dw == 64 || dw == 128) && (bn == 16 || bn == 32))
-             : (dw == 128 || dw == 256) && bn == 32;
+  return f32 ? (dw == 64 || dw == 128) && (bn == 16 || bn == 32) : (dw == 128 || dw == 256) && bn == 32;
 }
 // the widest block of an instantiation: 512 threads (at most 128 registers
 // each) where a lane's accumulators and scores fit that, else 256. A warp's
-// O takes DW / 2 registers a lane, f32 as much again for a key tile's P V;
-// at DW <= 32 a tile's 64 scores take most of the rest
+// O takes DW / 2 registers a lane, f32 as much again for a key tile's P V
 __host__ __device__ constexpr int split_max_threads(bool f32, int dw) {
-  return (f32 ? dw != 64 : dw >= 256) ? 256 : kSplitMaxThreads;
+  return (f32 ? dw > 64 : dw >= 256) ? 256 : kSplitMaxThreads;
 }
 // Q, then K and V in two stages each (f32: Q and K rows padded to 8 mod 32
 // words for 8-byte loads, V rows to 4 mod 32 for 4-byte loads; bf16: 16
@@ -773,9 +796,641 @@ cudaError_t launch_split(Kernel kernel, const void* q, const void* k, const void
   return cudaSuccess;
 }
 
+// ------------------------------------------------------------- tf32x3_wg
+
+// The block: warpgroup 0 feeds (warp 0 issues the TMA copies, warps 1-3
+// convert the staged tiles), warpgroups 1 and 2 compute, 64 query rows each.
+constexpr int kWgThreads = 384;
+constexpr int kWgRows = 64;        // query rows a consumer warpgroup owns
+constexpr int kWgKeys = 64;        // keys a staged tile holds
+constexpr int kWgConverters = 3;   // warps
+constexpr int kWgTile = 64 * 128;  // bytes of a [64][32] f32 tile: one TMA box, rows of one 128-byte swizzle span
+constexpr int kWgGrid = 132;       // persistent blocks: one per SM (ops/attention.py FULL_GRID)
+constexpr uint32_t kTf32Hi = 0xffffe000u;
+// registers a thread of the feeding and of a consumer warpgroup: 168 each at
+// the launch (65,536 over 384 threads), moved by setmaxnreg
+constexpr int kWgFeedRegs = 56, kWgComputeRegs = 224;
+static_assert(128 * kWgFeedRegs + 256 * kWgComputeRegs <= 65536, "the SM's registers");
+
+// the ring's stages at each depth (ops/attention.py WG_STAGES)
+__host__ __device__ constexpr int wg_stages(int depth) { return depth == 32 ? 4 : 2; }
+// both consumers' Q as loaded, and at depth 64 its lo part (at 32 Q lives
+// in registers); a stage's five tiles (K, K lo, V as loaded, V^T hi, V^T
+// lo); the barriers; 1024 bytes to align the swizzled tiles
+__host__ __device__ constexpr int wg_smem_bytes(int depth) {
+  return kWgTile * (depth / 32) * (depth == 32 ? 2 : 4) + 5 * kWgTile * (depth / 32) * wg_stages(depth) +
+         8 * (3 * wg_stages(depth) + 2) + 1024;
+}
+// the items the persistent blocks share: two heads each where a head is one
+// 64-row tile (T <= 64), else 128 query rows of one head
+__host__ __device__ inline int wg_items(int bh, int t_len) {
+  return t_len <= kWgRows ? (bh + 1) / 2 : bh * ((t_len + 2 * kWgRows - 1) / (2 * kWgRows));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {  // the loop inside: no branch the compiler sees
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT:\n mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n @!p bra WAIT;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// box (c0, c1, c2) of a [bh][T][D] f32 tensor into shared memory, zeros past its edges
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// this thread's shared-memory writes, seen by the tensor cores' and the TMA's reads that follow
+__device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// wgmma's shared-memory descriptor of a K-major tile in the 128-byte swizzle
+// (rows of 128 bytes, 8-row groups 1024 bytes apart; the tile 1024-aligned,
+// a k-step's 8 columns 32 bytes on from the last): the start address in the
+// low word (bits 0-13, in 16 bytes; the leading offset 1 at bit 16), the
+// group stride and the swizzle in the high word. An offset into the tile
+// adds to the low word, so a product's descriptor costs one add.
+__device__ __forceinline__ uint32_t wg_desc_lo(const void* p) { return ((smem_addr(p) & 0x3ffff) >> 4) | (1u << 16); }
+__device__ __forceinline__ uint64_t wg_desc(uint32_t lo, int bytes) {
+  return ((uint64_t)(64u | (1u << 30)) << 32) | (lo + (bytes >> 4));
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>  // the newest N committed groups may still run
+__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
+// registers the asynchronous products read or write are not touched across the wait
+template <int N>
+__device__ __forceinline__ void wg_keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_keep(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// The accumulator operands of an m64nN product: N / 2 registers a thread
+#define WG_REGS4 "{%0, %1, %2, %3}"
+#define WG_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define WG_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_REGS32                                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, " \
+  "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_ACC4(c) c(d[0]), c(d[1]), c(d[2]), c(d[3])
+#define WG_ACC8(c) WG_ACC4(c), c(d[4]), c(d[5]), c(d[6]), c(d[7])
+#define WG_ACC16(c) \
+  WG_ACC8(c), c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15])
+#define WG_ACC32(c)                                                                                              \
+  WG_ACC16(c), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]), c(d[25]), \
+      c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31])
+// "{ setp; wgmma }" with the accumulate flag ACC (0: d = a b, d only written; 1: d += a b) at operand %p
+#define WG_MMA(shape, regs, ab, p) \
+  "{\n .reg .pred p;\n setp.ne.b32 p, %" #p ", 0;\n wgmma.mma_async.sync.aligned." shape ".f32.tf32.tf32 " regs ", " ab ", p, 1, 1;\n}\n"
+
+// d (64x64, f32) = or += a (64x8, shared) * b (64x8, shared)^T, tf32
+template <int ACC>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  if constexpr (ACC) {
+    asm volatile(WG_MMA("m64n64k8", WG_REGS32, "%32, %33", 34) : WG_ACC32("+f") : "l"(a), "l"(b), "n"(ACC));
+  } else {
+    asm volatile(WG_MMA("m64n64k8", WG_REGS32, "%32, %33", 34) : WG_ACC32("=f") : "l"(a), "l"(b), "n"(ACC));
+  }
+}
+// d (64xN, f32) = or += a (64x8, registers) * b (Nx8, shared)^T, tf32; N = 8, 16, 32 or 64
+template <int ACC>
+__device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (ACC) {
+    asm volatile(WG_MMA("m64n8k8", WG_REGS4, "{%4, %5, %6, %7}, %8", 9)
+                 : WG_ACC4("+f") : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(ACC));
+  } else {
+    asm volatile(WG_MMA("m64n8k8", WG_REGS4, "{%4, %5, %6, %7}, %8", 9)
+                 : WG_ACC4("=f") : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(ACC));
+  }
+}
+template <int ACC>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (ACC) {
+    asm volatile(WG_MMA("m64n16k8", WG_REGS8, "{%8, %9, %10, %11}, %12", 13)
+                 : WG_ACC8("+f") : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(ACC));
+  } else {
+    asm volatile(WG_MMA("m64n16k8", WG_REGS8, "{%8, %9, %10, %11}, %12", 13)
+                 : WG_ACC8("=f") : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(ACC));
+  }
+}
+template <int ACC>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (ACC) {
+    asm volatile(WG_MMA("m64n32k8", WG_REGS16, "{%16, %17, %18, %19}, %20", 21)
+                 : WG_ACC16("+f") : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(ACC));
+  } else {
+    asm volatile(WG_MMA("m64n32k8", WG_REGS16, "{%16, %17, %18, %19}, %20", 21)
+                 : WG_ACC16("=f") : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(ACC));
+  }
+}
+template <int ACC>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (ACC) {
+    asm volatile(WG_MMA("m64n64k8", WG_REGS32, "{%32, %33, %34, %35}, %36", 37)
+                 : WG_ACC32("+f") : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(ACC));
+  } else {
+    asm volatile(WG_MMA("m64n64k8", WG_REGS32, "{%32, %33, %34, %35}, %36", 37)
+                 : WG_ACC32("=f") : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(ACC));
+  }
+}
+
+__device__ __forceinline__ float4 tf32_hi(float4 x) {
+  return make_float4(__uint_as_float(__float_as_uint(x.x) & kTf32Hi), __uint_as_float(__float_as_uint(x.y) & kTf32Hi),
+                     __uint_as_float(__float_as_uint(x.z) & kTf32Hi), __uint_as_float(__float_as_uint(x.w) & kTf32Hi));
+}
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) { return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w); }
+
+// One item of a block: the head and first query row of each consumer
+// warpgroup w, whether it has rows below T (`live`), and the item's K/V
+// loads: with T <= 64 one a live head (load j is head j's), else every key
+// tile of the one head.
+struct WgItem {
+  int head0, row0, loads, last_head, t_len;
+  bool split;
+  __device__ WgItem(int item, int bh, int t) : last_head(bh - 1), t_len(t), split(t <= kWgRows) {
+    if (split) {
+      head0 = 2 * item, row0 = 0, loads = head0 + 1 < bh ? 2 : 1;
+    } else {
+      const int q_tiles = (t + 2 * kWgRows - 1) / (2 * kWgRows);
+      head0 = item / q_tiles, row0 = (item - head0 * q_tiles) * 2 * kWgRows, loads = (t + kWgKeys - 1) / kWgKeys;
+    }
+  }
+  __device__ int head(int w) const { return split ? head0 + w : head0; }
+  __device__ int row(int w) const { return split ? 0 : row0 + w * kWgRows; }
+  __device__ bool live(int w) const { return split ? head0 + w <= last_head : row0 + w * kWgRows < t_len; }
+};
+
+// The feeding warpgroup: warp 0 issues the TMA copies (Q an item, K and V a
+// tile, in the order every role walks them); warps 1-3 convert each staged
+// tile: K cut to tf32 hi in place and its lo beside it, V transposed and
+// split in two.
+template <int DP>
+__device__ __forceinline__ void feed(const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map,
+                                     int bh, int t_len, int n_items, unsigned char* q_hi, unsigned char* stages,
+                                     uint64_t* full, uint64_t* conv, uint64_t* empty, uint64_t* q_full,
+                                     uint64_t* q_empty) {
+  constexpr int H = DP / 32, S = wg_stages(DP);
+  constexpr int kHalves = H * kWgTile, kStage = 5 * kHalves;
+  const bool split = t_len <= kWgRows;
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  if (warp == 0) {
+    if (lane != 0) return;
+    int n = 0;  // loads issued
+    for (int k = 0, item = blockIdx.x; item < n_items; ++k, item += gridDim.x) {
+      const WgItem it(item, bh, t_len);
+      if (k > 0) mbar_wait(q_empty, (k - 1) & 1);  // the consumers have the last item's Q
+      mbar_expect_tx(q_full, (it.live(0) + it.live(1)) * kHalves);
+      for (int w = 0; w < 2; ++w) {
+        if (!it.live(w)) continue;
+        for (int h = 0; h < H; ++h) {
+          tma_load(q_hi + w * kHalves + h * kWgTile, q_map, q_full, 32 * h, it.row(w), it.head(w));
+        }
+      }
+      for (int j = 0; j < it.loads; ++j, ++n) {
+        const int s = n % S;
+        if (n >= S) mbar_wait(&empty[s], (n / S - 1) & 1);
+        const int head = it.head(split ? j : 0), key0 = split ? 0 : j * kWgKeys;
+        unsigned char* st = stages + s * kStage;
+        mbar_expect_tx(&full[s], 2 * kHalves);
+        for (int h = 0; h < H; ++h) {
+          tma_load(st + h * kWgTile, k_map, &full[s], 32 * h, key0, head);
+          tma_load(st + 2 * kHalves + h * kWgTile, v_map, &full[s], 32 * h, key0, head);
+        }
+      }
+    }
+    return;
+  }
+  const int ct = tid - 32;
+  int n = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const WgItem it(item, bh, t_len);
+    for (int j = 0; j < it.loads; ++j, ++n) {
+      const int s = n % S;
+      mbar_wait(&full[s], (n / S) & 1);
+      unsigned char* st = stages + s * kStage;
+      float4* kx = reinterpret_cast<float4*>(st);
+      float4* kl = reinterpret_cast<float4*>(st + kHalves);
+      for (int i = ct; i < kHalves / 16; i += 32 * kWgConverters) {
+        const float4 x = kx[i], hi = tf32_hi(x);
+        kx[i] = hi;
+        kl[i] = sub4(x, hi);
+      }
+      // V as loaded: key row r of half h at h * tile + 128 r, its 16-byte
+      // chunks swizzled by r % 8. V^T: [2 key halves][hi, lo][DP rows][32
+      // keys], the same swizzle by row; each 8 keys even first, then odd
+      const unsigned char* vr = st + 2 * kHalves;
+      unsigned char* vth = st + 3 * kHalves;
+      unsigned char* vtl = vth + DP * 128;
+      for (int i = ct; i < DP * 8; i += 32 * kWgConverters) {
+        const int n_row = i % DP, grp = i / DP;  // depth n_row; keys 8 grp .. 8 grp + 7
+        const int h = n_row >> 5, col = n_row & 31;
+        float x[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int r = 8 * grp + e;
+          x[e] = *reinterpret_cast<const float*>(vr + h * kWgTile + r * 128 + (((col >> 2) ^ (r & 7)) << 4) + (col & 3) * 4);
+        }
+        const float4 ev = make_float4(x[0], x[2], x[4], x[6]), od = make_float4(x[1], x[3], x[5], x[7]);
+        const float4 ev_hi = tf32_hi(ev), od_hi = tf32_hi(od);
+        const int row = (grp >> 2) * 2 * DP * 128 + n_row * 128, c0 = 2 * (grp & 3);
+        const int a0 = row + ((c0 ^ (n_row & 7)) << 4), a1 = row + (((c0 + 1) ^ (n_row & 7)) << 4);
+        *reinterpret_cast<float4*>(vth + a0) = ev_hi;
+        *reinterpret_cast<float4*>(vth + a1) = od_hi;
+        *reinterpret_cast<float4*>(vtl + a0) = sub4(ev, ev_hi);
+        *reinterpret_cast<float4*>(vtl + a1) = sub4(od, od_hi);
+      }
+      fence_async_shared();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&conv[s]);
+    }
+  }
+}
+
+// Fragment layouts (PTX ISA, wgmma .tf32): warp wl of a consumer warpgroup
+// holds rows 16 wl + g and 16 wl + g + 8 of its 64 (lane = 4 g + tq). An
+// m64nN accumulator holds, for each 8 columns j, (row g, columns 8 j + 2 tq,
+// + 1) then (row g + 8, the same); a register A operand of k-step j holds
+// (row g, k tq), (g + 8, tq), (g, tq + 4), (g + 8, tq + 4). P feeds A straight
+// from S's accumulator with k tq standing for key 2 tq of the step and k tq +
+// 4 for key 2 tq + 1: V^T's staged rows put each 8 keys in that order (even
+// keys, then odd), so the products pair each P with its own V row.
+// DP: the depth staged (D zero-padded to 32 or 64); DK: the depth the
+// products run at (D rounded up to 8, 16 or 32; 64 at DP = 64), so a small
+// head does not pay for the padding.
+template <int DP, int DK>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    attention_tf32x3_kernel_wg(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map, float* __restrict__ o, int bh, int t_len,
+                               int d, float c) {
+  constexpr int H = DP / 32;  // 32-column halves of the depth: a TMA box and a swizzle span each
+  constexpr int S = wg_stages(DP);
+  constexpr int kHalves = H * kWgTile;   // bytes of 64 rows at the full depth
+  constexpr int kStage = 5 * kHalves;    // K, K lo, V, V^T hi, V^T lo
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* q_hi = base;                                  // [2][H] tiles, as loaded (depth 64: then cut to tf32)
+  unsigned char* q_lo = q_hi + 2 * kHalves;                    // [2][H] at depth 64
+  unsigned char* stages = q_lo + (DP == 32 ? 0 : 2 * kHalves);  // [S] stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + S * kStage);  // K and V landed
+  uint64_t* conv = full + S;                            // the stage converted
+  uint64_t* empty = conv + S;                           // the consumers are done with it
+  uint64_t* q_full = empty + S;
+  uint64_t* q_empty = q_full + 1;
+
+  // the warp's index as a value the compiler knows is the same in every lane:
+  // wgmma in a branch it takes for divergent is serialized
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  const bool split = t_len <= kWgRows;
+  const int n_items = wg_items(bh, t_len);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&conv[s], kWgConverters);
+      mbar_init(&empty[s], split ? 4 : 8);  // a load is one warpgroup's with T <= 64, else both's
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Registers: the feeding warpgroup gives up what the consumers' fragments
+  // need (the roles' paths never join again: setmaxnreg holds to the end)
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWgFeedRegs));
+    feed<DP>(&q_map, &k_map, &v_map, bh, t_len, n_items, q_hi, stages, full, conv, empty, q_full, q_empty);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgComputeRegs));
+
+  // consumers: warpgroup w, its warp wl owns rows 16 wl .. 16 wl + 15
+  const int w = (warp - 4) >> 2, wl = (warp - 4) & 3, wt = tid - 128 * (w + 1);
+  const int g = lane >> 2, tq = lane & 3;
+  unsigned char* my_lo = q_lo + w * kHalves;
+  const uint32_t lo_desc = wg_desc_lo(my_lo);
+  unsigned char* my_hi = q_hi + w * kHalves;
+  const uint32_t hi_desc = wg_desc_lo(my_hi);
+  int n = 0;  // the block's loads before this item
+  for (int k = 0, item = blockIdx.x; item < n_items; ++k, item += gridDim.x) {
+    const WgItem it(item, bh, t_len);
+    const bool live = it.live(w);
+    mbar_wait(q_full, k & 1);
+    float acc[DK / 2];
+    float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8, log2 units
+    float l[2] = {0.f, 0.f};              // this lane's part of their running sums
+    // Q: at depth 32 the A operand of S from registers, cut to tf32 hi and
+    // lo (row g | g + 8, depth 8 kk + tq | + 4), and its buffer free at
+    // once; at 64 (the registers are short) cut in place in shared memory,
+    // its lo beside it
+    uint32_t qf_hi[DP == 32 ? DK / 8 : 1][4], qf_lo[DP == 32 ? DK / 8 : 1][4];
+    if constexpr (DP == 32) {
+      if (live) {
+#pragma unroll
+        for (int kk = 0; kk < DK / 8; ++kk) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 16 * wl + g + 8 * (e & 1), col = 8 * kk + tq + 4 * (e >> 1);
+            const float x = *reinterpret_cast<const float*>(my_hi + r * 128 + (((col >> 2) ^ (r & 7)) << 4) + (col & 3) * 4);
+            qf_hi[kk][e] = __float_as_uint(x) & kTf32Hi;
+            qf_lo[kk][e] = __float_as_uint(x - __uint_as_float(qf_hi[kk][e]));
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty);
+    } else if (live) {
+      for (int i = wt; i < kHalves / 16; i += 128) {
+        float4* qx = reinterpret_cast<float4*>(my_hi) + i;
+        const float4 x = *qx, hi = tf32_hi(x);
+        *qx = hi;
+        reinterpret_cast<float4*>(my_lo)[i] = sub4(x, hi);
+      }
+      fence_async_shared();
+      group_sync(1 + w, 128);
+    }
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < DK / 2; ++i) acc[i] = 0.f;
+    }
+
+    // Key tile j + 1's S = Q K^T is issued with tile j's P V, and its
+    // softmax runs while that P V does. The issue of a product waits while
+    // the tensor cores' queue is full, so tile j's P V goes out in three
+    // parts between the parts of that softmax: the tensor cores run on while
+    // this warpgroup computes, and the other warpgroup's products fill what
+    // is left. Each warpgroup takes a step a tile (with T <= 64 one an item,
+    // and none where it has no head); one over rows past T (`live` false)
+    // only takes its loads off the ring. A product's issue and its wait
+    // stay in one branch: wgmma in flight across a join is serialized.
+    const int steps = split ? (live ? 1 : 0) : it.loads;
+    float sc[32];             // S, then P, of the newest tile
+    uint32_t ph[32], pl[32];  // the tile before's P cut to tf32 hi and its lo, in S's accumulator order
+    float pv[DK / 2];
+    float corr[2], corr_next[2];
+    auto issue_s = [&](int j) {
+      wg_fence();
+      const uint32_t k_desc = wg_desc_lo(stages + (n + (split ? w : j)) % S * kStage);
+#pragma unroll
+      for (int kk = 0; kk < DK / 8; ++kk) {  // lo hi, hi lo, hi hi: the k-steps of real depth
+        const int off = (kk >> 2) * kWgTile + (kk & 3) * 32;
+        if constexpr (DP == 32) {
+          if (kk == 0) {
+            wgmma_rs<0>(sc, qf_lo[kk], wg_desc(k_desc, off));
+          } else {
+            wgmma_rs<1>(sc, qf_lo[kk], wg_desc(k_desc, off));
+          }
+          wgmma_rs<1>(sc, qf_hi[kk], wg_desc(k_desc, kHalves + off));
+          wgmma_rs<1>(sc, qf_hi[kk], wg_desc(k_desc, off));
+        } else {
+          if (kk == 0) {
+            wgmma_ss_n64<0>(sc, wg_desc(lo_desc, off), wg_desc(k_desc, off));
+          } else {
+            wgmma_ss_n64<1>(sc, wg_desc(lo_desc, off), wg_desc(k_desc, off));
+          }
+          wgmma_ss_n64<1>(sc, wg_desc(hi_desc, off), wg_desc(k_desc, kHalves + off));
+          wgmma_ss_n64<1>(sc, wg_desc(hi_desc, off), wg_desc(k_desc, off));
+        }
+      }
+      wg_commit();
+    };
+    // P V: lo hi, hi lo, hi hi
+    auto issue_pv = [&](int s, int kk0, int kk1) {  // k-steps kk0 .. kk1 - 1, one group
+      if (kk0 == 0) wg_fence();
+      const uint32_t v_desc = wg_desc_lo(stages + s * kStage + 3 * kHalves);
+#pragma unroll
+      for (int kk = 0; kk < kWgKeys / 8; ++kk) {
+        if (kk < kk0 || kk >= kk1) continue;
+        const uint32_t ah[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1], ph[4 * kk + 3]};
+        const uint32_t al[4] = {pl[4 * kk], pl[4 * kk + 2], pl[4 * kk + 1], pl[4 * kk + 3]};
+        const int off = (kk >> 2) * 2 * DP * 128 + (kk & 3) * 32;
+        if (kk == 0) {
+          wgmma_rs<0>(pv, al, wg_desc(v_desc, off));
+        } else {
+          wgmma_rs<1>(pv, al, wg_desc(v_desc, off));
+        }
+        wgmma_rs<1>(pv, ah, wg_desc(v_desc, off + DP * 128));
+        wgmma_rs<1>(pv, ah, wg_desc(v_desc, off));
+      }
+      wg_commit();
+    };
+    // S to P in place; the running max and sums; corr_next rescales what
+    // came before. The scale c goes into each exponent's argument (one
+    // fma): the max of c s is c times the max of s, or the min where c < 0.
+    int keys = kWgKeys;  // the newest tile's keys below T
+    auto exps = [&](int i0, int i1) {  // P of S's entries i0 .. i1 - 1, into the sums
+      if (keys == kWgKeys || c != 0.f) {  // keys past T hold -inf / c: their P is 0
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          if (i < i0 || i >= i1) continue;
+          sc[i] = ex2(fmaf(sc[i], c, -m[(i >> 1) & 1]));
+          l[(i >> 1) & 1] += sc[i];
+        }
+      } else {  // c = 0 on the last tile: every key below T weighs the same, the rest 0
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          if (i < i0 || i >= i1) continue;
+          sc[i] = 8 * (i >> 2) + 2 * tq + (i & 1) < keys ? ex2(-m[(i >> 1) & 1]) : 0.f;
+          l[(i >> 1) & 1] += sc[i];
+        }
+      }
+    };
+    auto softmax = [&](int j) {  // the mask, the max, the first half's exponentials
+      keys = min(kWgKeys, t_len - (split ? 0 : j * kWgKeys));
+      if (keys < kWgKeys) {  // the last tile: keys past T left out of the max
+        const float past = c > 0.f ? -INFINITY : INFINITY;  // times c: -inf
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          if (8 * (i >> 2) + 2 * tq + (i & 1) >= keys) sc[i] = past;
+        }
+      }
+      float ext[2] = {sc[0], sc[2]};
+      if (c > 0.f) {
+#pragma unroll
+        for (int i = 1; i < 32; ++i) ext[(i >> 1) & 1] = fmaxf(ext[(i >> 1) & 1], sc[i]);
+      } else {
+#pragma unroll
+        for (int i = 1; i < 32; ++i) ext[(i >> 1) & 1] = fminf(ext[(i >> 1) & 1], sc[i]);
+      }
+      float mx[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(m[r], c * ext[r]);
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr_next[r] = ex2(m[r] - mx[r]);  // 0 on the first tile, where m = -inf
+        m[r] = mx[r];
+        l[r] *= corr_next[r];
+      }
+      exps(0, 16);
+    };
+    auto split_p = [&]() {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        ph[i] = __float_as_uint(sc[i]) & kTf32Hi;
+        pl[i] = __float_as_uint(sc[i] - __uint_as_float(ph[i]));
+      }
+    };
+
+    if (steps > 0) {  // the first tile's S and softmax
+      const int ld = n + (split ? w : 0);
+      mbar_wait(&conv[ld % S], (ld / S) & 1);
+      if (live) {
+        issue_s(0);
+        wg_wait<0>();
+        wg_keep(sc);
+        softmax(0);
+        exps(16, 32);
+        split_p();
+      }
+    }
+    for (int j = 0; j + 1 < steps; ++j) {  // a next tile: its S with this one's P V
+      const int ld = n + j, s = ld % S;
+      mbar_wait(&conv[(ld + 1) % S], ((ld + 1) / S) & 1);
+      if (live) {
+        issue_s(j + 1);
+        issue_pv(s, 0, 4);
+        wg_wait<1>();  // the next tile's S; the first part of this one's P V may still run
+        wg_keep(sc);
+        corr[0] = corr_next[0];
+        corr[1] = corr_next[1];
+        softmax(j + 1);
+        issue_pv(s, 4, 7);
+        exps(16, 32);
+        issue_pv(s, 7, 8);
+        wg_wait<0>();
+        wg_keep(pv);
+        wg_keep(ph);
+        wg_keep(pl);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < DK / 2; ++i) acc[i] = fmaf(acc[i], corr[(i >> 1) & 1], pv[i]);
+        split_p();
+      }
+    }
+    if (steps > 0) {  // the last tile's P V
+      const int s = (n + (split ? w : steps - 1)) % S;
+      if (live) {
+        issue_pv(s, 0, 8);
+        wg_wait<0>();
+        wg_keep(pv);
+        wg_keep(ph);
+        wg_keep(pl);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < DK / 2; ++i) {
+          acc[i] = fmaf(acc[i], corr_next[(i >> 1) & 1], pv[i]);
+        }
+      }
+    }
+    if constexpr (DP != 32) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty);
+    }
+    if (live) {
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        inv[r] = 1.f / l[r];
+      }
+      const int row = it.row(w) + 16 * wl + g;
+      float* out = o + (int64_t)it.head(w) * t_len * d;
+#pragma unroll
+      for (int j = 0; j < DK / 8; ++j) {
+        const int col = 8 * j + 2 * tq;
+        if (8 * j < d) {
+          if (row < t_len) {
+            *reinterpret_cast<float2*>(out + (int64_t)row * d + col) = make_float2(acc[4 * j] * inv[0], acc[4 * j + 1] * inv[0]);
+          }
+          if (row + 8 < t_len) {
+            *reinterpret_cast<float2*>(out + (int64_t)(row + 8) * d + col) =
+                make_float2(acc[4 * j + 2] * inv[1], acc[4 * j + 3] * inv[1]);
+          }
+        }
+      }
+    }
+    n += it.loads;
+  }
+}
+
+// cuTensorMapEncodeTiled, found through the runtime (no link to the driver library)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [bh][T][D] f32 read in boxes of 64 rows by 32 columns, 128-byte swizzled, zeros past the edges
+bool wg_map(EncodeTiled encode, CUtensorMap* map, const void* p, int bh, int t_len, int d) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t_len, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)t_len * d * 4};
+  const cuuint32_t box[3] = {32, kWgKeys, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(p), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, int DK>
+cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o, int bh, int t_len, int d, float c,
+                      cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap q_map, k_map, v_map;
+  if (!wg_map(encode, &q_map, q, bh, t_len, d) || !wg_map(encode, &k_map, k, bh, t_len, d) ||
+      !wg_map(encode, &v_map, v, bh, t_len, d)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = attention_tf32x3_kernel_wg<DP, DK>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem_bytes(DP));
+  if (err != cudaSuccess) return err;
+  const int blocks = wg_items(bh, t_len) < kWgGrid ? wg_items(bh, t_len) : kWgGrid;
+  kernel<<<blocks, kWgThreads, wg_smem_bytes(DP), stream>>>(q_map, k_map, v_map, static_cast<float*>(o), bh, t_len, d, c);
+  return cudaSuccess;
+}
+
 bool bad_plan(int variant, int bh, int t_len, int d, int dtype, int threads, int rows, int key_tile, int depth,
-              int smem_bytes) {
+              int smem_bytes, int stages) {
+  if ((variant == kTf32x3Wg) != (stages != 0)) return true;  // only tf32x3_wg has a ring of stages
   switch (variant) {
+    case kTf32x3Wg:
+      return dtype != bd::kFloat32 || d > 64 || depth != (d <= 32 ? 32 : 64) || threads != kWgThreads ||
+             rows != kWgRows || key_tile != kWgKeys || stages != wg_stages(depth) ||
+             smem_bytes != wg_smem_bytes(depth) || smem_bytes > kSmemLimit;
     case kPacked:
       return t_len > kPackedMaxT || d > kPackedMaxD || threads < 32 || threads > kPackedMaxThreads ||
              threads % 32 != 0 || rows != threads || key_tile != 0 || depth != d || smem_bytes != 0;
@@ -807,16 +1462,16 @@ bool bad_plan(int variant, int bh, int t_len, int d, int dtype, int threads, int
 
 // q, k, v, o: [bh, t_len, d] contiguous, 16-byte aligned, all one dtype. The
 // launch plan (variant, threads, rows a block, key tile, padded depth, dynamic
-// shared memory) is ops/attention.py `attention_plan`'s; one that does not
+// shared memory, ring stages) is ops/attention.py `attention_plan`'s; one that does not
 // fit the shape is refused. Returns a cudaError_t code (0 on success).
 // Launches on `device`, the tensors' (bd::DeviceGuard), in `stream_ptr`.
 extern "C" int bd_attention_fwd(const void* q, const void* k, const void* v, void* o, int bh, int t_len, int d,
                                 float scale, int dtype, int variant, int threads, int rows, int key_tile,
-                                int depth, int smem_bytes, int device, void* stream_ptr) {
+                                int depth, int smem_bytes, int stages, int device, void* stream_ptr) {
   if (bh <= 0 || t_len < 1 || t_len > kMaxT || d < 8 || d > 512 || d % 8 != 0 || (int64_t)bh * t_len > INT_MAX ||
       (dtype != bd::kFloat32 && dtype != bd::kBFloat16) ||
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) != 0 ||
-      bad_plan(variant, bh, t_len, d, dtype, threads, rows, key_tile, depth, smem_bytes)) {
+      bad_plan(variant, bh, t_len, d, dtype, threads, rows, key_tile, depth, smem_bytes, stages)) {
     return (int)cudaErrorInvalidValue;
   }
   const bd::DeviceGuard guard(device);
@@ -838,23 +1493,27 @@ extern "C" int bd_attention_fwd(const void* q, const void* k, const void* v, voi
       default: err = launch_tiled<256>(q, k, v, o, bh, t_len, d, c, rows, smem_bytes, stream); break;
     }
     if (err != cudaSuccess) return (int)err;
+  } else if (variant == kTf32x3Wg) {
+    const float c = scale * kLog2e;
+    cudaError_t err;  // the depth the products run at: D rounded up to 8, 16, 32 or 64
+    switch (d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : 64) {
+      case 8: err = launch_wg<32, 8>(q, k, v, o, bh, t_len, d, c, stream); break;
+      case 16: err = launch_wg<32, 16>(q, k, v, o, bh, t_len, d, c, stream); break;
+      case 32: err = launch_wg<32, 32>(q, k, v, o, bh, t_len, d, c, stream); break;
+      default: err = launch_wg<64, 64>(q, k, v, o, bh, t_len, d, c, stream); break;
+    }
+    if (err != cudaSuccess) return (int)err;
   } else {
     const float c = scale * kLog2e;
     const int dw = depth / (threads / (2 * rows));
     cudaError_t err;
     if (variant == kTf32x3) {
-      switch (dw) {
-        case 8: err = launch_split<float>(attention_tf32x3_kernel<8, 64>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream); break;
-        case 16: err = launch_split<float>(attention_tf32x3_kernel<16, 64>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream); break;
-        case 32: err = launch_split<float>(attention_tf32x3_kernel<32, 64>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream); break;
-        case 64:
-          err = key_tile == 16 ? launch_split<float>(attention_tf32x3_kernel<64, 16>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream)
-                               : launch_split<float>(attention_tf32x3_kernel<64, 32>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream);
-          break;
-        default:
-          err = key_tile == 16 ? launch_split<float>(attention_tf32x3_kernel<128, 16>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream)
-                               : launch_split<float>(attention_tf32x3_kernel<128, 32>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream);
-          break;
+      if (dw == 64) {
+        err = key_tile == 16 ? launch_split<float>(attention_tf32x3_kernel<64, 16>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream)
+                             : launch_split<float>(attention_tf32x3_kernel<64, 32>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream);
+      } else {
+        err = key_tile == 16 ? launch_split<float>(attention_tf32x3_kernel<128, 16>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream)
+                             : launch_split<float>(attention_tf32x3_kernel<128, 32>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream);
       }
     } else if (dw == 128) {
       err = launch_split<__nv_bfloat16>(attention_wide_kernel<128, 32>, q, k, v, o, bh, t_len, d, c, threads, rows, smem_bytes, stream);

@@ -1,6 +1,12 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch twin."""
 
-from baddiffusion_tpu_torch.ops.attention import attention, attention_backward_plain, attention_plain, attention_plan
+from baddiffusion_tpu_torch.ops.attention import (
+    attention,
+    attention_backward_plain,
+    attention_plain,
+    attention_plan,
+    attention_variant_counts,
+)
 from baddiffusion_tpu_torch.ops.bias_shift import (
     bias_shift,
     bias_shift_backward,
@@ -28,6 +34,7 @@ KERNELS = (groupnorm_silu, groupnorm_silu_backward, attention, bias_shift, bias_
 def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0
+    attention.variant_launches = dict.fromkeys(attention.variant_launches, 0)
 
 
 def launch_counts() -> dict:
@@ -48,6 +55,7 @@ __all__ = [
     "attention_backward_plain",
     "attention_plain",
     "attention_plan",
+    "attention_variant_counts",
     "bias_shift",
     "bias_shift_backward",
     "bias_shift_backward_plain",

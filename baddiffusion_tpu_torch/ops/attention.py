@@ -11,17 +11,18 @@ latent, the longest sequence of any model of the repo), D a multiple of 8 in
 has no bound on T (outside its Pallas envelope it runs its reference); here
 a call outside the envelope raises.
 
-Each call runs one of four variants, chosen on the host by
+Each call runs one of five variants, chosen on the host by
 ``attention_plan`` (cached) and checked again by the kernel's C entry point:
 ``packed`` (T ≤ 16, D ≤ 32: one thread a query row, the UNet's 1- and
 4-token calls), ``tiled`` (bf16 with D ≤ 256 otherwise: tensor-core tiles,
-FlashAttention-2's shape), ``tf32x3`` (f32 otherwise: the same shape on the
-TF32 tensor cores, each product as three TF32 products so that it keeps f32
-accuracy) and ``wide`` (bf16 with D > 256: ``tiled``'s products with O's
-depth split between warps). In the last two a group of warps shares 16
-query rows, each warp owning a slice of D; the slices' partial scores are
-added in shared memory in a fixed order. The source note says what bounds
-each and how it answers.
+FlashAttention-2's shape), ``tf32x3_wg`` (f32 with D ≤ 64 and T > 16:
+Hopper's warpgroup products fed by TMA, each product as three TF32 products
+so that it keeps f32 accuracy), ``tf32x3`` (f32 otherwise: ``tiled``'s shape
+on ``mma.sync`` with the same three products) and ``wide`` (bf16 with
+D > 256: ``tiled``'s products with O's depth split between warps). In the
+last two a group of warps shares 16 query rows, each warp owning a slice of
+D; the slices' partial scores are added in shared memory in a fixed order.
+The source note says what bounds each and how it answers.
 
 ``attention`` is differentiable (``_Attention``): the kernel runs the
 forward, and the backward recomputes the f32 softmax and applies the
@@ -47,7 +48,7 @@ MAX_T = 4096
 MIN_D, MAX_D = 8, 512
 # K3's launch plan (csrc/attention.cu): the H100's SMs, and the plan's choices
 FULL_GRID = 132  # blocks: one per SM
-VARIANTS = ("packed", "tiled", "tf32x3", "wide")  # the kernel's variant codes, in order
+VARIANTS = ("packed", "tiled", "tf32x3", "wide", "tf32x3_wg")  # the kernel's variant codes, in order
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may have
 PACKED_MAX_T, PACKED_MAX_D = 16, 32
 PACKED_THREADS = (256, 128, 64, 32)  # one query row a thread; widest first
@@ -57,12 +58,19 @@ TILED_ROWS = (16, 32, 64)  # the block heights the kernel takes, in query rows (
 # tf32x3 and wide: the depth a warp may own (DW) -> the key tiles instantiated
 # with it, preferred first; a block's rows (16 a group of D/DW warps) and its
 # widest block
-SPLIT_PARTS = {"tf32x3": {8: (64,), 16: (64,), 32: (64,), 64: (32, 16), 128: (32, 16)},
-               "wide": {128: (32,), 256: (32,)}}
+SPLIT_PARTS = {"tf32x3": {64: (32, 16), 128: (32, 16)}, "wide": {128: (32,), 256: (32,)}}
 SPLIT_ROWS = (16, 32, 64)
 # the widest block: 512 threads, where a lane's accumulators fit 128
 # registers (tf32x3 at DW = 64, wide at DW = 128), else 256
 SPLIT_MAX_THREADS = 512
+# tf32x3_wg (f32, D <= 64, T > 16): persistent blocks of a feeding warpgroup
+# and two consumer warpgroups of 64 query rows, 64 keys a staged tile, D
+# zero-padded to 32 or 64; the ring's stages at each depth
+WG_MAX_D = 64
+WG_THREADS, WG_ROWS, WG_KEY_TILE = 384, 64, 64
+WG_DEPTHS = (32, 64)
+WG_STAGES = {32: 4, 64: 2}
+WG_TILE_BYTES = 64 * 128  # a [64][32] f32 tile
 
 
 class AttentionPlan(NamedTuple):
@@ -71,7 +79,8 @@ class AttentionPlan(NamedTuple):
     the ``depth`` the variant runs D at (tiled: D zero-padded to its
     instantiation; tf32x3 and wide: the warps' slices of D together, a
     warp's ``depth`` / (``threads`` / (2 ``rows``)); packed: D),
-    ``smem_bytes`` of dynamic shared memory, and ``blocks``, the grid."""
+    ``smem_bytes`` of dynamic shared memory, ``blocks``, the grid, and
+    ``stages``, the K/V ring's stages (tf32x3_wg alone; 0 for the rest)."""
 
     variant: str
     threads: int
@@ -80,6 +89,7 @@ class AttentionPlan(NamedTuple):
     depth: int
     smem_bytes: int
     blocks: int
+    stages: int = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -108,23 +118,27 @@ def attention_plan(bh: int, t: int, d: int, dtype) -> AttentionPlan:
       at T = 16 too. Keys come
       in tiles of 64 (32 at depth 256); shared memory holds Q and two stages
       of K and V, each row padded by 16 bytes.
-    - ``tf32x3`` for f32 otherwise and ``wide`` for bf16 with D > 256: a
+    - ``tf32x3_wg`` for f32 with D ≤ 64 and T > 16 (``_wg_plan``): one
+      persistent block an SM, a feeding warpgroup and two consumer
+      warpgroups of 64 query rows, 64 keys a staged tile, D zero-padded to
+      32 or 64.
+    - ``tf32x3`` for the rest of f32 and ``wide`` for bf16 with D > 256: a
       group of ``depth``/DW warps shares 16 query rows, each warp DW columns
       of D. The rule follows ``scripts/time_attention.py --sweep`` on the
       H100: tall blocks share each K and V tile among more rows, which pays
       once the grid fills the card several times; on a short grid shorter
       blocks spread the work over more SMs.
 
-      - ``tf32x3``, D ≤ 64: one warp a group (DW the smallest of 8, 16, 32,
-        64 that holds D), 64 rows a block (fewer only where T is shorter).
+      - ``tf32x3``, D ≤ 64 (T ≤ 16, D > 32): one warp a group (DW = 64), 16
+        rows a block.
       - ``tf32x3``, D > 64: where 32-row blocks would fill the card four
         times, 64 rows with DW = 128 where they fit (D ≤ 256), else 32 rows
         with DW = 64; otherwise DW = 64 and 32 rows where that still fills
         half the card, else 16.
       - ``wide``: DW = 256 and 64 rows where that fills the card once, else
         DW = 128 and 16 rows.
-      - Keys come in tiles of 64 at DW ≤ 32, of 32 where they fit the
-        shared memory and T is longer than 16, else of 16."""
+      - Keys come in tiles of 32 where they fit the shared memory and T is
+        longer than 16, else of 16."""
     _check_envelope(t, d, dtype)
     if t <= PACKED_MAX_T and d <= PACKED_MAX_D:
         threads = next((n for n in PACKED_THREADS if _cdiv(bh * t, n) >= FULL_GRID), PACKED_THREADS[-1])
@@ -135,10 +149,11 @@ def attention_plan(bh: int, t: int, d: int, dtype) -> AttentionPlan:
         if bh * _cdiv(t, 64) >= FULL_GRID:
             return _fitting_split_plan("wide", bh, t, d, 64, 256)
         return _fitting_split_plan("wide", bh, t, d, 16, 128)
+    if d <= WG_MAX_D and t > PACKED_MAX_T:
+        return _wg_plan(bh, t, d)
     if d <= 64:
-        part_depth = next(p for p in SPLIT_PARTS["tf32x3"] if p >= d)
         rows = next(r for r in reversed(SPLIT_ROWS) if r == SPLIT_ROWS[0] or r // 2 < t)  # no taller than T needs
-        return _fitting_split_plan("tf32x3", bh, t, d, rows, part_depth)
+        return _fitting_split_plan("tf32x3", bh, t, d, rows, 64)
     if t > 32 and bh * _cdiv(t, 32) >= 4 * FULL_GRID:
         plan = _fitting_split_plan("tf32x3", bh, t, d, 64, 128)
         return plan if plan is not None else _fitting_split_plan("tf32x3", bh, t, d, 32, 64)
@@ -185,6 +200,21 @@ def split_plans(variant: str, bh: int, t: int, d: int) -> list:
     return [plan for plan in plans if plan is not None]
 
 
+def _wg_plan(bh: int, t: int, d: int) -> AttentionPlan:
+    """The ``tf32x3_wg`` plan (csrc/attention.cu ``wg_smem_bytes``,
+    ``wg_items``): shared memory for both consumers' Q and, at depth 64, its
+    lo part (at 32 the consumers hold Q in registers), the ring's stages of
+    five tiles (K, K lo, V, V^T hi, V^T lo), the barriers, 1024 bytes of
+    alignment; the grid one block an SM, or one an item where there are
+    fewer. An item is two heads where T <= 64, else 128 query rows."""
+    depth = next(p for p in WG_DEPTHS if p >= d)
+    stages, halves = WG_STAGES[depth], depth // 32
+    q_tiles = 2 * halves * (1 if depth == 32 else 2)
+    smem = WG_TILE_BYTES * (q_tiles + 5 * halves * stages) + 8 * (3 * stages + 2) + 1024
+    items = _cdiv(bh, 2) if t <= WG_ROWS else bh * _cdiv(t, 2 * WG_ROWS)
+    return AttentionPlan("tf32x3_wg", WG_THREADS, WG_ROWS, WG_KEY_TILE, depth, smem, min(items, FULL_GRID), stages)
+
+
 def _pad_to(n: int, r: int) -> int:
     """``n`` rounded up to ``r`` mod 32."""
     return n + (r - n) % 32
@@ -224,7 +254,7 @@ def attention_backward_plain(q, k, v, scale: float, grad_out):
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("attention").bd_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -253,8 +283,10 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
     if q.numel() == 0:
         return out
     b, h, t, d = q.shape
-    _launch(q, k, v, out, scale, attention_plan(b * h, t, d, q.dtype))
+    plan = attention_plan(b * h, t, d, q.dtype)
+    _launch(q, k, v, out, scale, plan)
     attention.launches += 1
+    attention.variant_launches[plan.variant] += 1
     return out
 
 
@@ -266,7 +298,8 @@ def _launch(q, k, v, out, scale: float, plan: AttentionPlan) -> None:
     rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b * h, t, d, float(scale), _build.DTYPE_CODES[q.dtype], VARIANTS.index(plan.variant),
-        plan.threads, plan.rows, plan.key_tile, plan.depth, plan.smem_bytes, dev, _build.current_stream(dev),
+        plan.threads, plan.rows, plan.key_tile, plan.depth, plan.smem_bytes, plan.stages, dev,
+        _build.current_stream(dev),
     )
     if rc != 0:
         raise RuntimeError(
@@ -299,3 +332,11 @@ def attention(q, k, v, scale: float) -> torch.Tensor:
 
 
 attention.launches = 0
+attention.variant_launches = dict.fromkeys(VARIANTS, 0)  # the same launches by plan variant
+
+
+def attention_variant_counts() -> dict:
+    """``{variant: launches}`` since the last ``ops.reset_launch_counts()``:
+    which of K3's plans the calls took (eager launches; a CUDA graph's
+    replays are not counted)."""
+    return dict(attention.variant_launches)

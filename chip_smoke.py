@@ -863,9 +863,10 @@ def phase_vq_nearest(dev, gen) -> dict:
 
 
 def attn_rate(plan, dtype):
-    """The rate K3's bound counts a plan's products at: the tf32x3 plan runs
-    f32 as three TF32 tensor-core products; the others at their dtype's."""
-    return "tf32x3" if plan.variant == "tf32x3" else dtype
+    """The rate K3's bound counts a plan's products at: the tf32x3 and
+    tf32x3_wg plans run f32 as three TF32 tensor-core products; the others
+    at their dtype's."""
+    return "tf32x3" if plan.variant.startswith("tf32x3") else dtype
 
 
 def phase_attention(dev, gen) -> dict:

@@ -12,7 +12,8 @@ Two tests, each bitwise:
    outputs after each fill must be the same bits. A kernel that reads shared
    memory it did not write shows here.
 2. Many calls in a row: K3 at every shape and dtype whose plan runs on the
-   tensor cores (``tiled`` and ``wide`` in bf16, ``tf32x3`` in f32), N calls
+   tensor cores (``tiled`` and ``wide`` in bf16, ``tf32x3`` and ``tf32x3_wg``
+   in f32), N calls
    (default 500; 50 at T = 4096) each compared with the first, with
    ``scaled_dot_product_attention`` run between every third pair.
 
@@ -98,7 +99,7 @@ def after_fills(fill, sms: int, label: str, fn) -> int:
     return differ
 
 
-TENSOR_CORE_PLANS = ("tiled", "tf32x3", "wide")
+TENSOR_CORE_PLANS = ("tiled", "tf32x3", "wide", "tf32x3_wg")
 
 
 def fill_tests(dev, gen, attn: list) -> tuple:

@@ -19,7 +19,7 @@ at batch 128 and 16, and one JSON line (also written to FILE).
 at each shape and prints the bound: the largest of the bytes over 3.35 TB/s,
 the 4·T²·D products a head over the rate of the plan's arithmetic (the bf16
 tensor rate, three TF32 products over the TF32 rate for the f32 tensor-core
-plan, else the f32 rate) and the T² exponentials a head over 3.9 T/s.
+plans, else the f32 rate) and the T² exponentials a head over 3.9 T/s.
 ``--sweep`` times every shape whose plan is ``tiled``, ``tf32x3`` or ``wide``
 at each block height the kernel takes (and, for ``wide``, each depth a warp
 may own): how the plan's rule was chosen. Needs a GPU.
@@ -82,7 +82,7 @@ def device_ms(fn, reps: int) -> float:
 
 def bound_ms(shape, dtype, variant: str) -> tuple:
     b, h, t, d = shape
-    rate = "bf16" if dtype == BF16 else "tf32x3" if variant == "tf32x3" else "f32"
+    rate = "bf16" if dtype == BF16 else "tf32x3" if variant.startswith("tf32x3") else "f32"
     times = {"bytes": 4 * b * h * t * d * (2 if dtype == BF16 else 4) / PEAK_BYTES_PER_S * 1e3,
              "operations": 4 * b * h * t * t * d / PEAK_OPS_PER_S[rate] * 1e3,
              "exponentials": b * h * t * t / PEAK_EXP_PER_S * 1e3}

@@ -330,16 +330,17 @@ def test_attention_kernel_matches_plain(dev, shape, dtype):
 
 
 # (shape, dtype, the plan's variant): each variant in each dtype it takes;
-# tf32x3 at each depth a warp may own (8, 32, 64 and 128: [16, 1, 4096, 512]
-# takes 128 where the grid is large, [8, 1, 256, 512] 64) and T = 1, wide at
-# both depths (256 at T = 4096, 128 on a short grid), D = 264 and 384
+# tf32x3_wg at depth 64 and 32 (D = 8 and 32); tf32x3 at each depth a warp
+# may own (64 and 128: [16, 1, 4096, 512] takes 128 where the grid is large,
+# [8, 1, 256, 512] 64) and T = 1, wide at both depths (256 at T = 4096, 128
+# on a short grid), D = 264 and 384
 ATTN_PLAN_CASES = [((128, 64, 4, 8), torch.bfloat16, "packed"), ((16, 64, 1, 8), torch.float32, "packed"),
                    ((4, 64, 256, 8), torch.bfloat16, "tiled"), ((2, 3, 100, 64), torch.bfloat16, "tiled"),
                    ((16, 1, 256, 256), torch.bfloat16, "tiled"), ((4, 8, 1024, 64), torch.bfloat16, "tiled"),
-                   ((2, 1, 256, 512), torch.bfloat16, "wide"), ((2, 3, 100, 64), torch.float32, "tf32x3"),
+                   ((2, 1, 256, 512), torch.bfloat16, "wide"), ((2, 3, 100, 64), torch.float32, "tf32x3_wg"),
                    ((2, 1, 4096, 512), torch.float32, "tf32x3"), ((2, 1, 4096, 512), torch.bfloat16, "wide"),
                    ((2, 2, 4096, 32), torch.bfloat16, "tiled"),
-                   ((4, 32, 256, 8), torch.float32, "tf32x3"), ((16, 14, 1024, 32), torch.float32, "tf32x3"),
+                   ((4, 32, 256, 8), torch.float32, "tf32x3_wg"), ((16, 14, 1024, 32), torch.float32, "tf32x3_wg"),
                    ((16, 1, 4096, 512), torch.float32, "tf32x3"), ((8, 1, 256, 512), torch.float32, "tf32x3"),
                    ((2, 1, 1, 512), torch.float32, "tf32x3"), ((16, 1, 4096, 512), torch.bfloat16, "wide"),
                    ((1, 2, 1, 264), torch.bfloat16, "wide"), ((2, 1, 100, 384), torch.bfloat16, "wide")]
@@ -349,7 +350,7 @@ ATTN_PLAN_CASES = [((128, 64, 4, 8), torch.bfloat16, "packed"), ((16, 64, 1, 8),
 def test_attention_kernel_is_bitwise_repeatable(dev, shape, dtype, variant):
     """Each variant: against the plain twin, and the same bits on two calls
     (no split over keys, no atomics; tf32x3 and wide add the warps' partial
-    scores in a fixed order)."""
+    scores in a fixed order; tf32x3_wg's products are summed in one order)."""
     b, h, t, d = shape
     assert ops.attention_plan(b * h, t, d, dtype).variant == variant
     q, k, v = _qkv(shape, dtype, dev)
@@ -373,11 +374,12 @@ def test_attention_kernel_refuses_a_plan_that_does_not_fit(dev):
         out = torch.empty_like(q)
         rc = attn._kernel()(q.data_ptr() + ptr_offset, q.data_ptr(), q.data_ptr(), out.data_ptr(), b * h, t, d,
                             d**-0.5, dtype_code, attn.VARIANTS.index(p.variant), p.threads, p.rows, p.key_tile,
-                            p.depth, p.smem_bytes, q.get_device(), stream)
+                            p.depth, p.smem_bytes, p.stages, q.get_device(), stream)
         return rc, out
 
     for shape, dtype in (((2, 3, 100, 64), torch.bfloat16), ((2, 64, 4, 8), torch.bfloat16),
-                         ((2, 1, 40, 512), torch.float32), ((2, 1, 40, 512), torch.bfloat16)):
+                         ((2, 1, 40, 512), torch.float32), ((2, 1, 40, 512), torch.bfloat16),
+                         ((2, 3, 100, 32), torch.float32)):
         q = _qkv(shape, dtype, dev)[0]
         b, h, t, d = shape
         plan = ops.attention_plan(b * h, t, d, dtype)
@@ -393,12 +395,82 @@ def test_attention_kernel_refuses_a_plan_that_does_not_fit(dev):
             bad += [dict(dtype_code=0), dict(key_tile=plan.key_tile // 2), dict(rows=48, threads=96)]
         if plan.variant in ("tf32x3", "wide"):  # the other dtype, a key tile or depth a warp not instantiated
             bad += [dict(dtype_code=1 - code), dict(key_tile=plan.key_tile * 4),
-                    dict(depth=2 * plan.depth, threads=plan.threads), dict(variant="tiled")]
+                    dict(depth=2 * plan.depth, threads=plan.threads), dict(variant="tiled"), dict(stages=2)]
+        if plan.variant == "tf32x3_wg":  # bf16, another ring, key tile or depth, no ring, the split plan's name
+            bad += [dict(dtype_code=1), dict(stages=plan.stages + 1), dict(stages=0), dict(key_tile=32),
+                    dict(depth=64, smem_bytes=ops.attention_plan(b * h, t, 64, dtype).smem_bytes,
+                         stages=ops.attention_plan(b * h, t, 64, dtype).stages),
+                    dict(variant="tf32x3", stages=0)]
         for change in bad:
             assert call(q, plan, **{"dtype_code": code, **change})[0] != 0, (shape, change)
     # past the envelope's long end, with the plan of T = 4096
     q = torch.zeros(1, 1, 4097, 8, device=dev)
     assert call(q, ops.attention_plan(1, 4096, 8, torch.float32), 0)[0] != 0
+
+
+# tf32x3_wg's shapes: the LDM UNet's three attention resolutions at the
+# sampling batch and T = 1024 at the measure's (B = 256); NCSN++ 256 px at
+# 16x16 and the 256 px scratch UNet; ragged T (100, 33, 4093, 65, 150) at
+# D = 8, 16, 40 and 64; an odd count of heads with T <= 64 (two a block)
+WG_CASES = [(16, 14, 1024, 32), (16, 21, 256, 32), (16, 28, 64, 32), (256, 14, 1024, 32), (2, 32, 256, 8),
+            (4, 64, 256, 8), (2, 3, 100, 8), (1, 3, 33, 16), (1, 1, 4093, 40), (2, 3, 100, 64), (1, 2, 65, 64),
+            (3, 1, 150, 16), (5, 1, 40, 32)]
+
+
+@pytest.mark.parametrize("shape", WG_CASES)
+def test_attention_wg_kernel_matches_plain_and_repeats(dev, shape):
+    """tf32x3_wg against the plain twin at f32 atol 1e-5 (the twin in slices
+    of the batch: [256, 14, 1024, 1024] scores would take 15 GiB), and the
+    same bits on a second call."""
+    b, h, t, d = shape
+    assert ops.attention_plan(b * h, t, d, torch.float32).variant == "tf32x3_wg"
+    q, k, v = _qkv(shape, torch.float32, dev)
+    first = ops.attention(q, k, v, d**-0.5)
+    for i in range(0, b, 16):
+        want = ops.attention_plain(q[i:i + 16], k[i:i + 16], v[i:i + 16], d**-0.5)
+        torch.testing.assert_close(first[i:i + 16], want, **TOL[torch.float32])
+    assert torch.equal(first, ops.attention(q, k, v, d**-0.5))
+
+
+def test_attention_wg_kernel_captures_and_replays_in_a_cuda_graph(dev):
+    """tf32x3_wg inside a CUDA graph (as the segment graphs take it): its
+    tensor maps are kernel parameters built at capture, so a replay on new
+    values in the captured buffers gives the eager call's bits."""
+    shape = (4, 14, 256, 32)
+    q, k, v = _qkv(shape, torch.float32, dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ops.attention(q, k, v, 32**-0.5)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.attention(q, k, v, 32**-0.5)
+    for seed in (3, 4):
+        for a, b in zip((q, k, v), _qkv(shape, torch.float32, dev, seed=seed)):
+            a.copy_(b)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ops.attention(q, k, v, 32**-0.5))
+
+
+@pytest.mark.parametrize("name,wg", [("LDM_CELEBA_HQ_256_UNET", 16), ("DDPM_CIFAR10_32", 0),
+                                     ("DDPM_EMA_CELEBAHQ_256", 0)])
+def test_f32_unet_forward_runs_its_heads_of_32_on_tf32x3_wg(dev, name, wg):
+    """An f32 forward at B=1: CompVis/ldm-celebahq-256's UNet makes 16 K3
+    launches, all 16 on tf32x3_wg (heads of 32 at T = 1024, 256, 64); the
+    published DDPMs' one-head attention (D = 256, 512) none."""
+    from baddiffusion_tpu_torch import model_configs
+
+    cfg = getattr(model_configs, name)
+    model = UNet2DModel(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(1, cfg.sample_size, cfg.sample_size, cfg.in_channels, device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        model(x, torch.tensor([10], device=dev))
+    counts = ops.attention_variant_counts()
+    assert counts["tf32x3_wg"] == wg and sum(counts.values()) == ops.launch_counts()["attention"]
+    assert ops.launch_counts()["attention"] == (16 if wg else 6)
 
 
 def test_attention_wrapper_refuses_outside_the_envelope(dev):

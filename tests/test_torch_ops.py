@@ -197,7 +197,7 @@ def test_groupnorm_rejects_indivisible_channels():
 
 
 # [B, H, T, D] -> K3's variant in bf16 (f32 takes packed where bf16 does,
-# else tf32x3): the main path at the training (128)
+# tf32x3_wg where D <= 64 and T > 16, else tf32x3): the main path at the training (128)
 # and sampling (16) batches; the scratch UNet at 256 px, micro-batch 4;
 # google/ddpm-cifar10-32 at batch 16; google/ddpm-ema-celebahq-256's 512-wide
 # head; the envelope's long end; ragged T; one head of 8 tokens of 40
@@ -220,19 +220,39 @@ ATTN_PLAN_CASES = [
 def test_attention_launch_plan(shape, bf16_variant, dtype):
     """K3's launch plan (computed on the CPU; the kernel checks it again):
     packed for T <= 16 and D <= 32 in both dtypes, tiled for the rest of bf16
-    up to D = 256, wide for bf16 above it, tf32x3 for the rest of f32; every
-    query row covered, shared memory within the H100's 227 KB, and, for
-    packed, a block per SM wherever the rows allow it. Tiled blocks stage
-    their head's whole K and V, so they keep their full height (64 rows)
-    whatever the grid: on the H100 that was faster than shorter blocks at
-    every shape timed. tf32x3 and wide split D between the warps of a
-    16-row group: ``depth`` / (``threads`` / (2 ``rows``)) columns a warp."""
+    up to D = 256, wide for bf16 above it, tf32x3_wg for f32 with D <= 64 and
+    T > 16, tf32x3 for the rest of f32; every query row covered, shared
+    memory within the H100's 227 KB, and, for packed, a block per SM
+    wherever the rows allow it. Tiled blocks stage their head's whole K and
+    V, so they keep their full height (64 rows) whatever the grid: on the
+    H100 that was faster than shorter blocks at every shape timed. tf32x3
+    and wide split D between the warps of a 16-row group: ``depth`` /
+    (``threads`` / (2 ``rows``)) columns a warp. tf32x3_wg: persistent
+    blocks, one an SM or one an item (two heads where T <= 64, else 128
+    query rows), of 384 threads (a feeding warpgroup and two consumers of
+    64 rows), 64 keys a staged tile, D padded to 32 or 64, its ring of
+    stages and Q's buffers in shared memory."""
     b, h, t, d = shape
     plan = ops.attention_plan(b * h, t, d, dtype)
-    want = bf16_variant if dtype == torch.bfloat16 or bf16_variant == "packed" else "tf32x3"
+    f32_variant = "tf32x3_wg" if d <= 64 and t > 16 else "tf32x3"
+    want = bf16_variant if dtype == torch.bfloat16 or bf16_variant == "packed" else f32_variant
     assert plan.variant == want
     assert plan.smem_bytes <= 227 * 1024
-    if plan.variant == "packed":
+    assert (plan.stages != 0) == (plan.variant == "tf32x3_wg")
+    if plan.variant == "tf32x3_wg":
+        depth = 32 if d <= 32 else 64
+        stages = {32: 4, 64: 2}[depth]
+        assert (plan.threads, plan.rows, plan.key_tile, plan.depth, plan.stages) == (384, 64, 64, depth, stages)
+        tile = 64 * 128  # a [64][32] f32 tile
+        q_tiles = {32: 2, 64: 2 * 2 * 2}[depth]  # both consumers' Q; at depth 64 in two halves, and its lo
+        tiles = q_tiles + 5 * (depth // 32) * stages  # 5 tiles a stage
+        assert plan.smem_bytes == tile * tiles + 8 * (3 * stages + 2) + 1024
+        items = -(-b * h // 2) if t <= 64 else b * h * -(-t // 128)
+        assert plan.blocks == min(items, 132)
+        # the consumers' 64-row tiles cover every row: an item's two warpgroups take 128 rows or two heads
+        assert 2 * plan.rows * -(-t // (2 * plan.rows)) >= t and 2 * plan.rows == 128
+        finest = 0
+    elif plan.variant == "packed":
         assert plan.rows == plan.threads and plan.threads in (32, 64, 128, 256) and plan.smem_bytes == 0
         assert plan.blocks == -(-b * h * t // plan.threads)
         finest = -(-b * h * t // 32)
@@ -276,7 +296,8 @@ def test_attention_plan_runs_every_longer_bf16_call_on_the_tensor_cores():
 
 def test_attention_plan_runs_no_call_on_the_old_rowwise_kernel():
     """Over the envelope (T in [1, 4096], D in [8, 512], both dtypes): no plan
-    is rowwise; every f32 call outside packed takes tf32x3, every bf16 call
+    is rowwise; every f32 call outside packed takes tf32x3_wg where D <= 64
+    and T > 16, else tf32x3, every bf16 call
     with D > 256 takes wide; shared memory stays within 227 KB and threads
     within the variant's cap."""
     ts = list(range(1, 80)) + list(range(80, 4097, 37)) + [255, 256, 257, 1023, 1024, 4095, 4096]
@@ -289,7 +310,7 @@ def test_attention_plan_runs_no_call_on_the_old_rowwise_kernel():
                     if t <= 16 and d <= 32:
                         assert plan.variant == "packed", (bh, t, d, dtype, plan)
                     elif dtype == torch.float32:
-                        assert plan.variant == "tf32x3", (bh, t, d, plan)
+                        assert plan.variant == ("tf32x3_wg" if d <= 64 and t > 16 else "tf32x3"), (bh, t, d, plan)
                     elif d > 256:
                         assert plan.variant == "wide", (bh, t, d, plan)
                     else:
@@ -299,6 +320,20 @@ def test_attention_plan_runs_no_call_on_the_old_rowwise_kernel():
                         assert plan.threads % (plan.depth // (4 if dtype == torch.float32 else 8)) == 0
         ops.attention_plan.cache_clear()
     assert "rowwise" not in importlib.import_module("baddiffusion_tpu_torch.ops.attention").VARIANTS
+
+
+def test_attention_variant_counts_start_at_zero_and_reset():
+    """``ops.attention_variant_counts()`` holds every plan variant and is
+    zeroed by ``ops.reset_launch_counts()``; a CPU call runs the plain twin
+    and counts nothing; ``ops.launch_counts()`` keeps its kernel names."""
+    ops.reset_launch_counts()
+    counts = ops.attention_variant_counts()
+    assert counts == dict.fromkeys(("packed", "tiled", "tf32x3", "wide", "tf32x3_wg"), 0)
+    q = torch.zeros(1, 1, 32, 32)
+    ops.attention(q, q, q, 1.0)
+    assert ops.attention_variant_counts() == counts
+    assert set(ops.launch_counts()) == {"groupnorm_silu", "groupnorm_silu_backward", "attention", "bias_shift",
+                                        "bias_shift_backward", "vq_nearest"}
 
 
 def test_attention_plan_refuses_outside_the_envelope():

@@ -4,6 +4,9 @@ that reads the card's byte counters runs where the card is), and on the CPU
 it runs under the CPU profiler, naming the device ``"cpu"``. The JAX module
 reads a TPU xplane, so there is no JAX side to hold it against."""
 
+import os
+import re
+
 import pytest
 import torch
 
@@ -68,6 +71,7 @@ def test_top_device_ops_by_time():
     ("void attention_tiled_kernel<64, 64>(...)", "K3"),
     ("attention_packed_kernel", "K3"),
     ("void attention_tf32x3_kernel<128, 16>(float const*, ...)", "K3"),
+    ("void (anonymous namespace)::attention_tf32x3_kernel_wg<32, 32>(CUtensorMap_st, CUtensorMap_st, ...)", "K3"),
     ("attention_wide_kernel", "K3"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32", "conv"),
     ("aten::mkldnn_convolution", "conv"),
@@ -79,6 +83,21 @@ def test_top_device_ops_by_time():
 ])
 def test_kernel_classes(name, cls):
     assert profiling.kernel_class(name) == cls
+
+
+def test_every_k3_kernel_symbol_is_k3_to_the_benchmark_trace():
+    """Each K3 kernel of csrc/attention.cu, tf32x3_wg's too, carries a name
+    the benchmark's trace classes as K3 (``bench_port/trace.py``)."""
+    from bench_port import trace
+
+    from baddiffusion_tpu_torch.ops import _build as build
+
+    with open(os.path.join(build.CSRC_DIR, "attention.cu")) as f:
+        kernels = set(re.findall(r"\b(attention_\w+_kernel\w*)\(", f.read()))
+    assert "attention_tf32x3_kernel_wg" in kernels and len(kernels) == 5
+    for name in kernels:
+        assert any(k in name for k in trace.KERNEL_CLASSES["K3"]), name
+        assert profiling.kernel_class(f"void (anonymous namespace)::{name}<32, 32>(...)") == "K3"
 
 
 def test_by_class_sums_and_formats():
